@@ -1,0 +1,112 @@
+"""Standalone val-set evaluation: checkpoint → mean IU + per-class IUs.
+
+    python -m structure_knowledge_distillation_tpu_torch.cli.eval \
+        --resume-from ./ckpt/CS_scenes_40000.pth \
+        --data-dir ../cityscapes --data-list ../cityscapes/list/val.lst
+
+Counterpart of `structure_knowledge_distillation_tpu/cli/eval.py`, with the
+same flags plus `--device` (default `cuda`; a host without CUDA needs
+`--device cpu`). Ported so far: Cityscapes, the ResNet-18 PSPNet student and
+the single-device whole-image single-scale sweep. The port reads `.pth`
+checkpoints only; a JAX `.msgpack` checkpoint crosses over as the state dict
+that the JAX package's `export_torch_respspnet` writes. Without
+`--resume-from` the student keeps seeded random weights (seed 0).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from structure_knowledge_distillation_tpu_torch.data import (
+    DATASET_EVAL_DEFAULTS,
+    CityscapesDataset,
+    batch_iterator,
+)
+from structure_knowledge_distillation_tpu_torch.models import student_model
+from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
+from structure_knowledge_distillation_tpu_torch.training.evaluate import (
+    SHARDED_ITEM,
+    evaluate_main,
+)
+
+DATASET_ITEM = "VOC and CamVid eval are ROADMAP Queue A item 'VOC/CamVid/ESPNet'"
+ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 'VOC/CamVid/ESPNet'"
+
+
+def str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="val-set mIoU evaluation (PyTorch/CUDA)")
+    p.add_argument("--data-set", default="cityscapes", type=str,
+                   choices=sorted(DATASET_EVAL_DEFAULTS))
+    p.add_argument("--data-dir", default="", type=str)
+    p.add_argument("--data-list", default="dataset/list/cityscapes/val.lst", type=str)
+    p.add_argument("--resume-from", default="", type=str)
+    p.add_argument("--classes_num", default=0, type=int,
+                   help="0 = dataset default (19/21/11)")
+    p.add_argument("--student-arch", default="resnet18", type=str,
+                   choices=("resnet18", "espnet"))
+    p.add_argument("--output-dir", default="", type=str)
+    p.add_argument("--whole", default=True, type=str2bool)
+    p.add_argument("--flip", default=False, type=str2bool)
+    p.add_argument("--scales", default="1.0", type=str)
+    p.add_argument("--eval-size", default="", type=str,
+                   help="H,W; empty = dataset default")
+    p.add_argument("--tile-size", default="512,512", type=str,
+                   help="H,W sliding tile for --whole false (not ported yet)")
+    p.add_argument("--num-data-shards", default=1, type=int)
+    p.add_argument("--num-spatial-shards", default=1, type=int)
+    p.add_argument("--device", default="cuda", type=str,
+                   help="torch device; a host without CUDA needs --device cpu")
+    args = p.parse_args(argv)
+
+    if args.data_set not in ("cityscapes", "cityscape"):
+        raise NotImplementedError(DATASET_ITEM)
+    if args.student_arch != "resnet18":
+        raise NotImplementedError(ESPNET_ITEM)
+    if args.num_data_shards > 1 or args.num_spatial_shards > 1:
+        raise NotImplementedError(SHARDED_ITEM)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device on this host; pass --device cpu")
+    if args.resume_from.endswith(".msgpack"):
+        raise ValueError("the port reads .pth checkpoints only; convert a JAX "
+                         ".msgpack with export_torch_respspnet and torch.save")
+
+    default_size, default_classes = DATASET_EVAL_DEFAULTS[args.data_set]
+    out_h, out_w = (map(int, args.eval_size.split(","))
+                    if args.eval_size else default_size)
+    num_classes = args.classes_num or default_classes
+
+    model = student_model(num_classes, device=device,
+                          generator=torch.Generator().manual_seed(0))
+    if args.resume_from:
+        ckpt_io.load_reference_state_dict(model, ckpt_io.load_torch_state_dict(args.resume_from))
+    model.eval()
+
+    ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(out_h, out_w))
+    loader = batch_iterator(ds, 1, shuffle=False, drop_last=False)
+    mean_iu, iu_array, _ = evaluate_main(
+        model, loader, num_classes, out_size=(out_h, out_w), eval_type="val",
+        output_dir=args.output_dir or None, whole=args.whole,
+        scales=tuple(float(s) for s in args.scales.split(",")), flip=args.flip,
+        device=device,
+    )
+    print(f"meanIU: {mean_iu:.6f}")
+    print("IU_array:", np.array2string(iu_array, precision=4))
+    return mean_iu
+
+
+if __name__ == "__main__":
+    main()

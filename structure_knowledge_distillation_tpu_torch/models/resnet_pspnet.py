@@ -1,0 +1,225 @@
+"""ResNet-backbone PSPNet — teacher (R101/Bottleneck) and student (R18/Basic).
+
+Counterpart of `structure_knowledge_distillation_tpu/models/resnet_pspnet.py`
+in NCHW, with the reference's module tree (networks/pspnet_combine.py), so
+its state-dict keys are the reference's torch keys:
+  * 3-conv stem 3→64→64→128, first conv stride 2, then a ceil-mode 3×3/2 max
+    pool: 512² crops give 65×65 stride-8 maps, 1024×2048 frames 129×257;
+  * dilated layer3 (d=2) and layer4 (d=4), output stride 8;
+  * PSP pyramid pooling over bins (1,2,3,6): `pspmodule.stages.i.{0 pool,
+    1 conv, 2 ABN}`, then the literal concat + 3×3 conv `pspmodule.bottleneck`.
+    The JAX default computes that conv in a factored form shaped for the TPU's
+    matrix unit; the two agree up to float reassociation;
+  * DSN auxiliary head from layer3: `dsn.{0 conv+bias, 1 ABN, 2 Dropout2d,
+    3 conv+bias}`;
+  * the forward contract is the 7-tuple
+    (logits, dsn_logits, feat_after_psp, x4, x3, x2, x1).
+
+Only eval mode runs: ABN's train mode belongs to the train slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import ABN
+from structure_knowledge_distillation_tpu_torch.ops.pooling import max_pool_2d
+from structure_knowledge_distillation_tpu_torch.ops.resize import (
+    resize_bilinear_align_corners,
+)
+
+__all__ = [
+    "ResPSPNet", "BasicBlock", "Bottleneck", "PSPModule",
+    "BASIC", "BOTTLENECK", "teacher_model", "student_model",
+]
+
+BASIC = "basic"
+BOTTLENECK = "bottleneck"
+
+Device = Optional[torch.device | str]
+
+# PSP/DSN Dropout2d rate (reference pspnet_combine.py:100); inert in eval mode,
+# the only mode ported so far
+DROP_RATE = 0.1
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
+          bias: bool = False, device: Device = None) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride=stride,
+                     padding=dilation * (kernel - 1) // 2, dilation=dilation,
+                     bias=bias, device=device)
+
+
+class BasicBlock(nn.Module):
+    """Two 3×3 convs + identity (reference pspnet_combine.py:19-45)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, has_downsample: bool = False,
+                 device: Device = None):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device=device)
+        self.bn1 = ABN(planes, device=device)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation, device=device)
+        self.bn2 = ABN(planes, device=device)
+        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, device=device),
+                                         ABN(planes, device=device))
+                           if has_downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = self.downsample(x) if self.downsample is not None else x
+        return F.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """1×1 → 3×3 → 1×1(×4) bottleneck (reference pspnet_combine.py:47-84)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, has_downsample: bool = False,
+                 device: Device = None):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 1, device=device)
+        self.bn1 = ABN(planes, device=device)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation, device=device)
+        self.bn2 = ABN(planes, device=device)
+        self.conv3 = _conv(planes, planes * 4, 1, device=device)
+        self.bn3 = ABN(planes * 4, device=device)
+        self.downsample = (nn.Sequential(_conv(inplanes, planes * 4, 1, stride, device=device),
+                                         ABN(planes * 4, device=device))
+                           if has_downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = self.downsample(x) if self.downsample is not None else x
+        return F.relu(out + residual)
+
+
+class PSPModule(nn.Module):
+    """Pyramid scene parsing pooling head (reference pspnet_combine.py:86-112).
+
+    Each level is adaptive-avg-pool → 1×1 conv → ABN(leaky_relu) →
+    align-corners upsample back; the levels are concatenated before the input
+    and bottlenecked by a 3×3 conv + ABN(leaky_relu) + Dropout2d.
+    """
+
+    def __init__(self, in_features: int, out_features: int = 512,
+                 sizes: Sequence[int] = (1, 2, 3, 6), device: Device = None):
+        super().__init__()
+        self.stages = nn.ModuleList([
+            nn.Sequential(nn.AdaptiveAvgPool2d((s, s)),
+                          _conv(in_features, out_features, 1, device=device),
+                          ABN(out_features, activation="leaky_relu", device=device))
+            for s in sizes
+        ])
+        self.bottleneck = nn.Sequential(
+            _conv(in_features + len(sizes) * out_features, out_features, 3, device=device),
+            ABN(out_features, activation="leaky_relu", device=device),
+            nn.Dropout2d(DROP_RATE),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[2], x.shape[3]
+        priors = [resize_bilinear_align_corners(stage(x), (h, w)) for stage in self.stages]
+        return self.bottleneck(torch.cat(priors + [x], dim=1))
+
+
+class ResPSPNet(nn.Module):
+    """The combined backbone + PSP + DSN network (reference Res_pspnet).
+
+    block: "bottleneck" (teacher, layers [3,4,23,3]) or "basic" (student,
+    layers [2,2,2,2]). `width_mult` scales the stem, residual, DSN and PSP
+    widths (the heads stay at num_classes); 1.0 is the reference geometry.
+    Convolution weights are drawn from `generator` (He normal, fan-out, as the
+    JAX package initialises them) on the CPU and copied to `device`, so a seed
+    gives the same weights on every device; biases start at 0.
+    """
+
+    def __init__(self, block: str = BOTTLENECK, layers: Sequence[int] = (3, 4, 23, 3),
+                 num_classes: int = 19, width_mult: float = 1.0, device: Device = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if block not in (BASIC, BOTTLENECK):
+            raise ValueError(f"unknown block {block!r}")
+        self.block = block
+        block_cls = Bottleneck if block == BOTTLENECK else BasicBlock
+        expansion = block_cls.expansion
+        wm = lambda c: max(1, int(round(c * width_mult)))  # noqa: E731
+
+        self.conv1 = _conv(3, wm(64), 3, 2, device=device)
+        self.bn1 = ABN(wm(64), device=device)
+        self.conv2 = _conv(wm(64), wm(64), 3, device=device)
+        self.bn2 = ABN(wm(64), device=device)
+        self.conv3 = _conv(wm(64), wm(128), 3, device=device)
+        self.bn3 = ABN(wm(128), device=device)
+
+        inplanes = wm(128)
+        plan = [(wm(64), 1, 1), (wm(128), 2, 1), (wm(256), 1, 2), (wm(512), 1, 4)]
+        for li, ((planes, stride, dilation), blocks) in enumerate(zip(plan, layers), start=1):
+            stage = []
+            for bi in range(blocks):
+                has_down = bi == 0 and (stride != 1 or inplanes != planes * expansion)
+                stage.append(block_cls(inplanes, planes, stride if bi == 0 else 1,
+                                       dilation, has_downsample=has_down, device=device))
+                inplanes = planes * expansion
+            setattr(self, f"layer{li}", nn.Sequential(*stage))
+
+        c3 = plan[2][0] * expansion
+        c4 = plan[3][0] * expansion
+        mid = wm(512) if block == BOTTLENECK else wm(128)
+        self.pspmodule = PSPModule(c4, mid, device=device)
+        self.head = _conv(mid, num_classes, 1, bias=True, device=device)
+        self.dsn = nn.Sequential(
+            _conv(c3, mid, 3, bias=True, device=device),
+            ABN(mid, activation="leaky_relu", device=device),
+            nn.Dropout2d(DROP_RATE),
+            _conv(mid, num_classes, 1, bias=True, device=device),
+        )
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                w = torch.randn(m.weight.shape, generator=generator)
+                m.weight.copy_(w * math.sqrt(2.0 / fan_out))
+                if m.bias is not None:
+                    m.bias.zero_()
+
+    def forward(self, x: torch.Tensor):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = max_pool_2d(x, (3, 3), (2, 2), (1, 1), ceil_mode=True)
+        x1 = self.layer1(x)
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x4 = self.layer4(x3)
+        x_dsn = self.dsn(x3)
+        feat_after_psp = self.pspmodule(x4)
+        logits = self.head(feat_after_psp)
+        return (logits, x_dsn, feat_after_psp, x4, x3, x2, x1)
+
+
+def teacher_model(num_classes: int = 19, device: Device = None,
+                  generator: Optional[torch.Generator] = None) -> ResPSPNet:
+    return ResPSPNet(BOTTLENECK, (3, 4, 23, 3), num_classes, device=device,
+                     generator=generator)
+
+
+def student_model(num_classes: int = 19, device: Device = None,
+                  generator: Optional[torch.Generator] = None) -> ResPSPNet:
+    return ResPSPNet(BASIC, (2, 2, 2, 2), num_classes, device=device,
+                     generator=generator)

@@ -1,0 +1,29 @@
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
+    ABN,
+    BatchNorm2d,
+    abn_normalize,
+)
+from structure_knowledge_distillation_tpu_torch.ops.pooling import (
+    adaptive_avg_pool_2d,
+    max_pool_2d,
+)
+from structure_knowledge_distillation_tpu_torch.ops.resize import (
+    interp_matrix_align_corners,
+    resize_bilinear_align_corners,
+)
+from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
+    upsampled_argmax,
+    upsampled_argmax_plain,
+)
+
+__all__ = [
+    "ABN",
+    "BatchNorm2d",
+    "abn_normalize",
+    "adaptive_avg_pool_2d",
+    "max_pool_2d",
+    "interp_matrix_align_corners",
+    "resize_bilinear_align_corners",
+    "upsampled_argmax",
+    "upsampled_argmax_plain",
+]

@@ -1,0 +1,126 @@
+"""Weights across the two packages and from the reference's `.pth` files.
+
+Counterpart of the torch-interop half of `structure_knowledge_distillation_tpu/
+training/checkpoint.py`. The port's `ResPSPNet` already uses the reference's
+state-dict names, so:
+  * `state_dict_from_jax` turns the JAX package's variable tree into that
+    state dict (what its `export_torch_respspnet` returns, without flax);
+  * `load_reference_state_dict` merges a torch state dict into a model with
+    the JAX importer's semantics: `module.` stripped, the released teachers'
+    `head.0.*`/`head.1.*` remapped, `fc.*` and `num_batches_tracked` dropped,
+    and every other key taken only where the model has it at the same shape.
+
+The port reads `.pth` files only; the JAX package's `.msgpack` checkpoints
+cross over as `export_torch_respspnet` dicts.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax", "load_torch_state_dict", "load_reference_state_dict"]
+
+log = logging.getLogger(__name__)
+
+_LEAF = {"kernel": "weight", "weight": "weight", "bias": "bias",
+         "mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _torch_module(mod: Tuple[str, ...]) -> Optional[str]:
+    """JAX module path -> the reference's torch module name (None: no counterpart)."""
+    if len(mod) == 1 and mod[0].startswith(("conv", "bn")) and "_" not in mod[0]:
+        return mod[0]
+    if mod == ("head",):
+        return "head"
+    if mod and mod[0].startswith("layer") and "_" in mod[0]:
+        layer, idx = mod[0].split("_")
+        sub = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+        return f"{layer}.{idx}.{sub.get(mod[1], mod[1])}"
+    if mod and mod[0] == "pspmodule":
+        sub = mod[1]
+        if sub.startswith("stage"):
+            i = sub[len("stage"):sub.index("_")]
+            return f"pspmodule.stages.{i}." + ("1" if sub.endswith("conv") else "2")
+        return {"bottleneck_conv": "pspmodule.bottleneck.0",
+                "bottleneck_bn": "pspmodule.bottleneck.1"}.get(sub)
+    return {("dsn_conv1",): "dsn.0", ("dsn_bn",): "dsn.1",
+            ("dsn_conv2",): "dsn.3"}.get(tuple(mod[:1]))
+
+
+def state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's ResPSPNet `{"params", "batch_stats"}` tree (nested
+    dicts of arrays) as the reference's torch state dict of numpy arrays:
+    HWIO kernels become OIHW, `mean`/`var` become `running_mean`/`running_var`."""
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})).items():
+            torch_mod = _torch_module(path[:-1])
+            if torch_mod is None or path[-1] not in _LEAF:
+                continue
+            v = np.asarray(value)
+            if path[-1] == "kernel" and v.ndim == 4:
+                v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
+            out[f"{torch_mod}.{_LEAF[path[-1]]}"] = v
+    return out
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Load a `.pth` state dict (or a `{"state_dict": ...}` checkpoint) onto
+    the CPU. Only tensors and plain containers are unpickled."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def _reference_key(key: str) -> Optional[str]:
+    """Normalise a reference checkpoint key; None for keys with no counterpart."""
+    if key.startswith("module."):
+        key = key[len("module."):]
+    # released teachers wrap PSP + classifier as `head` (reference utils/utils.py:78-87)
+    if key.startswith("head.0."):
+        key = "pspmodule." + key[len("head.0."):]
+    elif key.startswith("head.1."):
+        key = "head." + key[len("head.1."):]
+    parts = key.split(".")
+    if parts[0] == "fc" or parts[-1] == "num_batches_tracked":
+        return None
+    return key
+
+
+def load_reference_state_dict(model: torch.nn.Module,
+                              state_dict: Mapping[str, object]) -> list:
+    """Merge a reference-style state dict into `model` by intersection with a
+    shape check (reference utils/utils.py:101). Returns the skipped keys,
+    which are also logged."""
+    target = model.state_dict()
+    merged, skipped = {}, []
+    for key, value in state_dict.items():
+        k = _reference_key(key)
+        if k is None or k not in target:
+            skipped.append(key)
+            continue
+        v = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value)
+        if tuple(v.shape) != tuple(target[k].shape):
+            skipped.append(f"{key} (shape {tuple(v.shape)} vs {tuple(target[k].shape)})")
+            continue
+        merged[k] = v
+    model.load_state_dict(merged, strict=False)
+    if skipped:
+        log.info("torch import: %d loaded, %d skipped (%s%s)", len(merged), len(skipped),
+                 ", ".join(skipped[:5]), "…" if len(skipped) > 5 else "")
+    return skipped

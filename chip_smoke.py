@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's whole-image eval path (`training/evaluate.py::evaluate_main`)
-on the card at Cityscapes full resolution, in phases; each phase prints one
-line and any failure ends the run with a non-zero exit:
+Drives the port's two main paths on the card, in phases: the whole-image
+eval path (`training/evaluate.py::evaluate_main`) at Cityscapes full
+resolution, and the Pi+Pa+Ho distillation train step
+(`training/trainer.py::KDTrainer.fit`) at the reference recipe. Each phase
+prints one line and any failure ends the run with a non-zero exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
      the torch/CUDA versions and the TF32 flags as set;
@@ -19,7 +21,21 @@ line and any failure ends the run with a non-zero exit:
      the kernel must have launched once per frame;
   5. GPU vs CPU: the same student and frame on cuda and cpu with TF32 off;
   6. teacher: one frame of the full-width ResNet-101 PSPNet through the same
-     make_fast_val_fn.
+     make_fast_val_fn;
+  7. ce_kernel: the upsampled-CE kernels K4/K5 (two heads) and K2/K3 (one
+     head) against their plain versions at the train shape, (8,19,65,65)
+     logits → (8,512,512) labels, f32 and bf16, 5 % and 100 % ignored
+     labels: loss within a relative 1e-5, low-res gradients within 1e-4 of
+     their largest entry (f32) or one bf16 ulp of it (bf16), two runs
+     bit-identical; warm median device times, forward and forward+backward;
+  8. train: KDTrainer.fit at the reference recipe (batch 8, 512² crops,
+     bf16 convs, Pi+Pa+Ho, wgan-gp) with a seeded random full-width R101
+     teacher and seeded R18 student and discriminator: 2 warm-up steps, then
+     5 timed steps; every loss finite, student and D parameters changed, and
+     K4 and K5 launched once per step;
+  9. train_gpu_vs_cpu: one f32 step of the CPU tests' small configuration on
+     cuda (TF32 off) and on cpu from the same weights and GP α: losses and
+     parameter updates agree.
 
 The last two lines are the kernels' JSON record and the contract line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -37,18 +53,37 @@ import time
 import numpy as np
 import torch
 
+from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import SyntheticSegDataset, batch_iterator
-from structure_knowledge_distillation_tpu_torch.models import student_model, teacher_model
+from structure_knowledge_distillation_tpu_torch.models import (
+    Discriminator,
+    ResPSPNet,
+    student_model,
+    teacher_model,
+)
 from structure_knowledge_distillation_tpu_torch.ops import _build
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
     upsampled_argmax_plain,
 )
+from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
+    upsampled_ce_loss,
+    upsampled_ce_loss_dsn,
+    upsampled_ce_loss_dsn_plain,
+    upsampled_ce_loss_plain,
+)
 from structure_knowledge_distillation_tpu_torch.training.evaluate import (
     evaluate_main,
     make_fast_val_fn,
 )
+from structure_knowledge_distillation_tpu_torch.training.train_state import (
+    KDTrainState,
+    make_sgd,
+    poly_schedule,
+)
+from structure_knowledge_distillation_tpu_torch.training.train_step import make_train_step
+from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
 
 FULL_RES = (1024, 2048)
 NUM_CLASSES = 19
@@ -61,6 +96,17 @@ TIE_GAP_MAX = 1e-5
 # accumulate in different orders through ~20 layers
 LOGITS_REL_TOL = 1e-3
 CLASS_MAP_AGREEMENT_MIN = 0.999
+# K2–K5 vs their plain versions: f32 sums in another order; in bf16 the
+# gradient is one rounding of nearly the same f32 value
+CE_LOSS_RTOL = 1e-5
+CE_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+TRAIN_SHAPE = (8, NUM_CLASSES, 65, 65)
+TRAIN_CROP = (512, 512)
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# GPU vs CPU train step in f32 with TF32 off: the one-step envelope of the
+# CPU parity tests (tests/test_torch_port_train_step.py)
+STEP_LOSS_RTOL, STEP_LOSS_ATOL = 2e-3, 2e-4
+STEP_UPDATE_REL_L2, STEP_UPDATE_COS, UPDATE_FLOOR = 2e-2, 0.999, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -103,6 +149,25 @@ def randomize_bn_stats(model: torch.nn.Module, seed: int) -> None:
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
             elif name.endswith("running_var"):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
+
+
+def randomize_affine(model: torch.nn.Module, seed: int) -> None:
+    """The CPU parity tests' randomisation: signed BN weights (a quarter
+    negative, so |w| + eps matters), small BN and conv biases, non-zero
+    attention gammas, and random running statistics."""
+    g = torch.Generator().manual_seed(seed)
+    randomize_bn_stats(model, seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() != 1:
+                continue
+            if name.endswith("gamma"):
+                p.copy_(0.5 * torch.rand(p.shape, generator=g))
+            elif name.endswith("weight"):
+                sign = torch.where(torch.rand(p.shape, generator=g) < 0.25, -1.0, 1.0)
+                p.copy_(sign * (torch.rand(p.shape, generator=g) + 0.5))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
 
 
 def phase_device() -> None:
@@ -250,6 +315,215 @@ def phase_teacher(device: torch.device) -> None:
           max_memory_allocated=torch.cuda.max_memory_allocated(device))
 
 
+def _ce_case(device, heads, dtype, ignored, seed):
+    g = torch.Generator().manual_seed(seed)
+    xs = [(2.0 * torch.randn(TRAIN_SHAPE, generator=g)).to(device, dtype).requires_grad_()
+          for _ in range(heads)]
+    labels = torch.randint(0, NUM_CLASSES, (TRAIN_SHAPE[0],) + TRAIN_CROP, generator=g)
+    labels[torch.rand(labels.shape, generator=g) < ignored] = 255
+    return xs, labels.to(device)
+
+
+def phase_ce_kernel(device: torch.device) -> dict:
+    """K2–K5 against the plain versions; returns the JSON fields per kernel."""
+    cases, record = [], {}
+    for heads, fn, plain, k_fwd, k_bwd in ((2, upsampled_ce_loss_dsn, upsampled_ce_loss_dsn_plain,
+                                            "K4", "K5"),
+                                           (1, upsampled_ce_loss, upsampled_ce_loss_plain,
+                                            "K2", "K3")):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ignored in (0.05, 1.0):
+                xs, labels = _ce_case(device, heads, dtype, ignored, 7 + heads)
+                runs = []
+                for _ in range(2):
+                    loss = fn(*xs, labels, TRAIN_CROP)
+                    runs.append((loss.detach(), torch.autograd.grad(loss, xs)))
+                ref = plain(*xs, labels, TRAIN_CROP)
+                ref_grads = torch.autograd.grad(ref, xs)
+                torch.cuda.synchronize()
+                (loss, grads), (loss2, grads2) = runs
+                name = f"{heads}-head {str(dtype)[6:]} ignored={ignored}"
+                check(torch.equal(loss, loss2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads, grads2)),
+                      f"{name}: two runs differ")
+                loss_err = abs(loss.item() - ref.item())
+                check(loss_err <= CE_LOSS_RTOL * abs(ref.item()) + 1e-7,
+                      f"{name}: loss {loss.item()} vs plain {ref.item()}")
+                grad_err = max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(grads, ref_grads))
+                grad_max = max(b.float().abs().max().item() for b in ref_grads)
+                check(grad_err <= CE_GRAD_REL[dtype] * grad_max + 1e-12,
+                      f"{name}: grad max |diff| {grad_err} vs max |grad| {grad_max}")
+                check(all(gr.dtype == dtype for gr in grads), f"{name}: grad dtype")
+                if ignored == 1.0:
+                    check(loss.item() == 0.0 and not any(gr.any() for gr in grads),
+                          f"{name}: an all-ignored batch gives a non-zero loss or gradient")
+                    cases.append({"case": name, "loss": loss.item(), "bit_identical": True})
+                    continue
+                fwd_ms = cuda_median_ms(lambda: fn(*xs, labels, TRAIN_CROP))
+                plain_fwd_ms = cuda_median_ms(lambda: plain(*xs, labels, TRAIN_CROP))
+                fb_ms = cuda_median_ms(
+                    lambda: torch.autograd.grad(fn(*xs, labels, TRAIN_CROP), xs))
+                plain_fb_ms = cuda_median_ms(
+                    lambda: torch.autograd.grad(plain(*xs, labels, TRAIN_CROP), xs))
+                loss = fn(*xs, labels, TRAIN_CROP)
+                ref = plain(*xs, labels, TRAIN_CROP)
+                bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(loss, xs, retain_graph=True))
+                plain_bwd_ms = cuda_median_ms(
+                    lambda: torch.autograd.grad(ref, xs, retain_graph=True))
+                cases.append({"case": name, "loss": loss.item(), "loss_abs_err": loss_err,
+                              "grad_max_abs_err": grad_err, "grad_max": grad_max,
+                              "bit_identical": True, "fwd_ms": fwd_ms,
+                              "plain_fwd_ms": plain_fwd_ms, "bwd_ms": bwd_ms,
+                              "plain_bwd_ms": plain_bwd_ms, "fwd_bwd_ms": fb_ms,
+                              "plain_fwd_bwd_ms": plain_fb_ms})
+                if dtype == torch.bfloat16:  # the train step's logits are bf16
+                    record[k_fwd] = {"max_abs_err": loss_err, "ms": fwd_ms,
+                                     "plain_ms": plain_fwd_ms}
+                    record[k_bwd] = {"max_abs_err": grad_err, "ms": bwd_ms,
+                                     "plain_ms": plain_bwd_ms}
+    phase(7, "ce_kernel", shape=list(TRAIN_SHAPE), out=list(TRAIN_CROP), cases=cases)
+    return record
+
+
+def _train_config(**overrides) -> TrainConfig:
+    kwargs = dict(data_set="synthetic", classes_num=NUM_CLASSES, batch_size=8,
+                  input_size=TRAIN_CROP, compute_dtype="bfloat16", pi=True, pa=True, ho=True,
+                  adv_loss_type="wgan-gp", device="cuda", log_every=1)
+    kwargs.update(overrides)
+    return TrainConfig(**kwargs)
+
+
+def _flat_params(module: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).float() for p in module.parameters()])
+
+
+def phase_train(device: torch.device) -> dict:
+    cfg = _train_config()
+    teacher = teacher_model(NUM_CLASSES, generator=torch.Generator().manual_seed(2))
+    randomize_bn_stats(teacher, 3)
+    trainer = KDTrainer(cfg, teacher_state=teacher.state_dict())
+    del teacher
+    ds = SyntheticSegDataset((WARMUP_STEPS + TIMED_STEPS) * cfg.batch_size, TRAIN_CROP,
+                             NUM_CLASSES, seed=0)
+    batches = list(batch_iterator(ds, cfg.batch_size, shuffle=False))
+    s_before, d_before = _flat_params(trainer.student), _flat_params(trainer.discriminator)
+
+    trainer.fit(batches[:WARMUP_STEPS])
+    torch.cuda.synchronize()
+    upsampled_ce_loss_dsn.launches = upsampled_ce_loss_dsn.bwd_launches = 0
+    upsampled_ce_loss.launches = upsampled_ce_loss.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer.fit(batches[WARMUP_STEPS:])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = {"K4": upsampled_ce_loss_dsn.launches, "K5": upsampled_ce_loss_dsn.bwd_launches,
+                "K2": upsampled_ce_loss.launches, "K3": upsampled_ce_loss.bwd_launches}
+
+    steps = [m for _, m in trainer.history]
+    check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"{len(steps)} logged steps")
+    for m in steps:
+        check(all(math.isfinite(v) for v in m.values()), f"a loss is not finite: {m}")
+    check(not torch.equal(s_before, _flat_params(trainer.student)), "student unchanged")
+    check(not torch.equal(d_before, _flat_params(trainer.discriminator)), "D unchanged")
+    check(launches["K4"] == TIMED_STEPS and launches["K5"] == TIMED_STEPS,
+          f"K4/K5 launched {launches['K4']}/{launches['K5']} times in {TIMED_STEPS} steps")
+    phase(8, "train", model="R101 teacher -> R18 student, full width, bf16 convs",
+          batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS,
+          ms_per_step=1e3 * took / TIMED_STEPS,
+          images_per_second=cfg.batch_size * TIMED_STEPS / took, launches=launches,
+          max_memory_allocated=torch.cuda.max_memory_allocated(device),
+          first_step=steps[0], last_step=steps[-1])
+    return launches
+
+
+def _small_state(device, sd=None) -> KDTrainState:
+    cfg = _small_config(device)
+    g = torch.Generator().manual_seed(11)
+    teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0,
+                        generator=g)
+    student = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, generator=g)
+    disc = Discriminator(7, 1, 33, 16, generator=g)
+    if sd is not None:
+        for model, state in zip((teacher, student, disc), sd):
+            model.load_state_dict(state)
+    else:
+        for model in (teacher, student, disc):
+            randomize_affine(model, 12)
+    teacher.to(device).requires_grad_(False)
+    student.to(device)
+    disc.to(device)
+    return KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+
+
+def _small_config(device) -> TrainConfig:
+    return TrainConfig(classes_num=7, batch_size=2, input_size=(256, 256), imsize_for_adv=33,
+                       adv_conv_dim=16, num_steps=4, compute_dtype="float32",
+                       device=str(device))
+
+
+def phase_train_gpu_vs_cpu(device: torch.device) -> None:
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = _small_state("cpu")
+        start = [{k: v.clone() for k, v in m.state_dict().items()}
+                 for m in (cpu.teacher, cpu.student, cpu.discriminator)]
+        gpu = _small_state(device, start)
+        rng = np.random.RandomState(5)
+        images = rng.randn(2, 3, 256, 256).astype(np.float32)
+        images[1] = 3.0 * images[1] + 1.0  # two images of different statistics
+        labels = rng.randint(0, 7, (2, 256, 256))
+        labels[0, :16] = 255
+        alpha = torch.from_numpy(rng.rand(2, 1, 1, 1).astype(np.float32))
+        before = upsampled_ce_loss_dsn.launches
+        m_gpu = make_train_step(_small_config(device))(
+            gpu, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device),
+            alpha=alpha.to(device))
+        check(upsampled_ce_loss_dsn.launches == before + 1, "the GPU step did not launch K4")
+        m_cpu = make_train_step(_small_config("cpu"))(
+            cpu, torch.from_numpy(images), torch.from_numpy(labels), alpha=alpha)
+        loss_rel = {}
+        for k, v in m_cpu.items():
+            a, b = float(m_gpu[k]), float(v)
+            check(math.isfinite(a) and abs(a - b) <= STEP_LOSS_RTOL * abs(b) + STEP_LOSS_ATOL,
+                  f"GPU vs CPU {k}: {a} vs {b}")
+            loss_rel[k] = abs(a - b) / max(abs(b), 1e-30)
+        worst = (0.0, "")
+        for name, start_sd, g_mod, c_mod in (("student", start[1], gpu.student, cpu.student),
+                                             ("disc", start[2], gpu.discriminator,
+                                              cpu.discriminator)):
+            g_sd, c_sd = g_mod.state_dict(), c_mod.state_dict()
+            updates = {k: ((g_sd[k].cpu() - start_sd[k]).double(),
+                           (c_sd[k] - start_sd[k]).double())
+                       for k, _ in c_mod.named_parameters()}
+            # a tensor whose update is under 1e-4 of the model's largest (a
+            # conv bias before a train-mode BN has an analytically zero
+            # gradient and moves by weight decay alone) is held to that floor
+            floor = UPDATE_FLOOR * max(dt.norm().item() for _, dt in updates.values())
+            for k, (dg, dt) in updates.items():
+                nt, err = dt.norm().item(), (dg - dt).norm().item()
+                check(err <= max(STEP_UPDATE_REL_L2 * nt, floor),
+                      f"GPU vs CPU update of {name}.{k}: |diff| {err} vs |update| {nt}")
+                if nt > floor:
+                    cos = (dg * dt).sum().item() / (dg.norm().item() * nt + 1e-30)
+                    check(cos > STEP_UPDATE_COS, f"GPU vs CPU update of {name}.{k}: cos {cos}")
+                    worst = max(worst, (err / nt, f"{name}.{k}"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    phase(9, "train_gpu_vs_cpu", loss_rel_diff=loss_rel, worst_update_rel_l2=worst[0],
+          worst_update_tensor=worst[1], loss_rtol=STEP_LOSS_RTOL,
+          update_rel_l2_max=STEP_UPDATE_REL_L2, update_cos_min=STEP_UPDATE_COS,
+          update_floor=UPDATE_FLOOR)
+
+
 def main() -> int:
     phase_device()
     device = torch.device("cuda", 0)
@@ -259,7 +533,10 @@ def main() -> int:
     launches = phase_slice(device)
     phase_gpu_vs_cpu(device)
     phase_teacher(device)
-    print(json.dumps({"kernels": [{
+    ce = phase_ce_kernel(device)
+    train_launches = phase_train(device)
+    phase_train_gpu_vs_cpu(device)
+    kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
         "source": "structure_knowledge_distillation_tpu_torch/csrc/upsampled_argmax.cu",
@@ -270,7 +547,21 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+    }]
+    ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
+    pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"
+    # K4/K5 carry the train step; K2/K3 run only when the DSN heads differ in
+    # shape, which the R18 student never does, so the train path counts 0 of
+    # them. Errors: |loss − plain| for a forward, max |grad − plain| for a
+    # backward, at the train shape in bf16; ms: device time of that kernel.
+    for key, name, line in (("K2", "upsampled_ce_loss (forward)", 183),
+                            ("K3", "upsampled_ce_loss (backward)", 227),
+                            ("K4", "upsampled_ce_loss_dsn (forward)", 315),
+                            ("K5", "upsampled_ce_loss_dsn (backward)", 362)):
+        kernels.append({"name": name, "route": "cuda", "source": ce_source,
+                        "replaces": f"{pallas_ce}:{line}", "launches": train_launches[key],
+                        "on_main_path": key in ("K4", "K5"), **ce[key]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

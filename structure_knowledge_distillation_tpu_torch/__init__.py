@@ -16,7 +16,9 @@ Rules of the package:
     version beside it that CPU tensors take.
 
 Ported so far: the whole-image evaluation path of the PSPNet students and
-teachers (`cli/eval.py` → `training/evaluate.py::evaluate_main`).
+teachers (`cli/eval.py` → `training/evaluate.py::evaluate_main`) and the
+Pi+Pa+Ho distillation train step (`cli/train.py` →
+`training/trainer.py::KDTrainer.fit` → `training/train_step.py`).
 """
 
 __version__ = "0.1.0"

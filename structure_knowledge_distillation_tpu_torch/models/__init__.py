@@ -8,14 +8,17 @@ from structure_knowledge_distillation_tpu_torch.models.resnet_pspnet import (
     student_model,
     teacher_model,
 )
+from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator, SelfAttention
 
 __all__ = [
     "BASIC",
     "BOTTLENECK",
     "BasicBlock",
     "Bottleneck",
+    "Discriminator",
     "PSPModule",
     "ResPSPNet",
+    "SelfAttention",
     "student_model",
     "teacher_model",
 ]

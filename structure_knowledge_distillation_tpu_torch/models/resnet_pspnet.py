@@ -15,7 +15,13 @@ its state-dict keys are the reference's torch keys:
   * the forward contract is the 7-tuple
     (logits, dsn_logits, feat_after_psp, x4, x3, x2, x1).
 
-Only eval mode runs: ABN's train mode belongs to the train slice.
+Train mode runs ABN on batch statistics and the two channel dropouts at
+`drop_rate` (0.0 turns them off, as parity tests do: masks cannot be shared
+across frameworks). `dtype` is the compute dtype of the convolutions, as in
+the JAX model: with bfloat16 the input is cast once, every conv casts its f32
+weights to bf16, and the activations stay bf16 between layers, while ABN
+computes its statistics and normalisation in f32 and returns bf16, and the
+PSP upsample interpolates in f32. Parameters and running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from structure_knowledge_distillation_tpu_torch.ops.resize import (
 )
 
 __all__ = [
-    "ResPSPNet", "BasicBlock", "Bottleneck", "PSPModule",
+    "ResPSPNet", "BasicBlock", "Bottleneck", "PSPModule", "Conv2d", "Dropout2d",
     "BASIC", "BOTTLENECK", "teacher_model", "student_model",
 ]
 
@@ -42,17 +48,57 @@ BASIC = "basic"
 BOTTLENECK = "bottleneck"
 
 Device = Optional[torch.device | str]
+DType = Optional[torch.dtype]
 
-# PSP/DSN Dropout2d rate (reference pspnet_combine.py:100); inert in eval mode,
-# the only mode ported so far
+# PSP/DSN Dropout2d rate (reference pspnet_combine.py:100)
 DROP_RATE = 0.1
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in `compute_dtype` (None: as given). The
+    parameters stay f32 and are cast per call, as a JAX conv with `dtype`."""
+
+    def __init__(self, *args, compute_dtype: DType = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout, as the JAX model's `nn.Dropout(broadcast_dims=(1, 2))`:
+    in train mode each (sample, channel) map is kept with probability
+    1 − rate and scaled by 1/(1 − rate). The mask is drawn on the CPU from
+    `generator` (torch's default generator when None) and moved to x's
+    device, so a seed gives the same masks on every device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        shape = tuple(x.shape[:2]) + (1,) * (x.dim() - 2)
+        keep = (torch.rand(shape, generator=generator) < keep_prob).to(x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
-          bias: bool = False, device: Device = None) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride,
-                     padding=dilation * (kernel - 1) // 2, dilation=dilation,
-                     bias=bias, device=device)
+          bias: bool = False, device: Device = None, dtype: DType = None) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride,
+                  padding=dilation * (kernel - 1) // 2, dilation=dilation,
+                  bias=bias, device=device, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -62,13 +108,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None):
+                 device: Device = None, dtype: DType = None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device=device)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device=device, dtype=dtype)
         self.bn1 = ABN(planes, device=device)
-        self.conv2 = _conv(planes, planes, 3, 1, dilation, device=device)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation, device=device, dtype=dtype)
         self.bn2 = ABN(planes, device=device)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, device=device),
+        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, device=device,
+                                               dtype=dtype),
                                          ABN(planes, device=device))
                            if has_downsample else None)
 
@@ -86,15 +133,16 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None):
+                 device: Device = None, dtype: DType = None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, device=device)
+        self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
         self.bn1 = ABN(planes, device=device)
-        self.conv2 = _conv(planes, planes, 3, stride, dilation, device=device)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation, device=device, dtype=dtype)
         self.bn2 = ABN(planes, device=device)
-        self.conv3 = _conv(planes, planes * 4, 1, device=device)
+        self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
         self.bn3 = ABN(planes * 4, device=device)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes * 4, 1, stride, device=device),
+        self.downsample = (nn.Sequential(_conv(inplanes, planes * 4, 1, stride, device=device,
+                                               dtype=dtype),
                                          ABN(planes * 4, device=device))
                            if has_downsample else None)
 
@@ -115,24 +163,28 @@ class PSPModule(nn.Module):
     """
 
     def __init__(self, in_features: int, out_features: int = 512,
-                 sizes: Sequence[int] = (1, 2, 3, 6), device: Device = None):
+                 sizes: Sequence[int] = (1, 2, 3, 6), device: Device = None,
+                 dtype: DType = None, drop_rate: float = DROP_RATE):
         super().__init__()
         self.stages = nn.ModuleList([
             nn.Sequential(nn.AdaptiveAvgPool2d((s, s)),
-                          _conv(in_features, out_features, 1, device=device),
+                          _conv(in_features, out_features, 1, device=device, dtype=dtype),
                           ABN(out_features, activation="leaky_relu", device=device))
             for s in sizes
         ])
         self.bottleneck = nn.Sequential(
-            _conv(in_features + len(sizes) * out_features, out_features, 3, device=device),
+            _conv(in_features + len(sizes) * out_features, out_features, 3, device=device,
+                  dtype=dtype),
             ABN(out_features, activation="leaky_relu", device=device),
-            nn.Dropout2d(DROP_RATE),
+            Dropout2d(drop_rate),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
         priors = [resize_bilinear_align_corners(stage(x), (h, w)) for stage in self.stages]
-        return self.bottleneck(torch.cat(priors + [x], dim=1))
+        conv, bn, dropout = self.bottleneck
+        return dropout(bn(conv(torch.cat(priors + [x], dim=1))), generator)
 
 
 class ResPSPNet(nn.Module):
@@ -143,25 +195,29 @@ class ResPSPNet(nn.Module):
     widths (the heads stay at num_classes); 1.0 is the reference geometry.
     Convolution weights are drawn from `generator` (He normal, fan-out, as the
     JAX package initialises them) on the CPU and copied to `device`, so a seed
-    gives the same weights on every device; biases start at 0.
+    gives the same weights on every device; biases start at 0. `dtype` is the
+    convolutions' compute dtype (None: float32) and `drop_rate` the rate of
+    the PSP and DSN channel dropouts in train mode.
     """
 
     def __init__(self, block: str = BOTTLENECK, layers: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 19, width_mult: float = 1.0, device: Device = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: DType = None,
+                 drop_rate: float = DROP_RATE):
         super().__init__()
         if block not in (BASIC, BOTTLENECK):
             raise ValueError(f"unknown block {block!r}")
         self.block = block
+        self.dtype = dtype
         block_cls = Bottleneck if block == BOTTLENECK else BasicBlock
         expansion = block_cls.expansion
         wm = lambda c: max(1, int(round(c * width_mult)))  # noqa: E731
 
-        self.conv1 = _conv(3, wm(64), 3, 2, device=device)
+        self.conv1 = _conv(3, wm(64), 3, 2, device=device, dtype=dtype)
         self.bn1 = ABN(wm(64), device=device)
-        self.conv2 = _conv(wm(64), wm(64), 3, device=device)
+        self.conv2 = _conv(wm(64), wm(64), 3, device=device, dtype=dtype)
         self.bn2 = ABN(wm(64), device=device)
-        self.conv3 = _conv(wm(64), wm(128), 3, device=device)
+        self.conv3 = _conv(wm(64), wm(128), 3, device=device, dtype=dtype)
         self.bn3 = ABN(wm(128), device=device)
 
         inplanes = wm(128)
@@ -171,20 +227,21 @@ class ResPSPNet(nn.Module):
             for bi in range(blocks):
                 has_down = bi == 0 and (stride != 1 or inplanes != planes * expansion)
                 stage.append(block_cls(inplanes, planes, stride if bi == 0 else 1,
-                                       dilation, has_downsample=has_down, device=device))
+                                       dilation, has_downsample=has_down, device=device,
+                                       dtype=dtype))
                 inplanes = planes * expansion
             setattr(self, f"layer{li}", nn.Sequential(*stage))
 
         c3 = plan[2][0] * expansion
         c4 = plan[3][0] * expansion
         mid = wm(512) if block == BOTTLENECK else wm(128)
-        self.pspmodule = PSPModule(c4, mid, device=device)
-        self.head = _conv(mid, num_classes, 1, bias=True, device=device)
+        self.pspmodule = PSPModule(c4, mid, device=device, dtype=dtype, drop_rate=drop_rate)
+        self.head = _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype)
         self.dsn = nn.Sequential(
-            _conv(c3, mid, 3, bias=True, device=device),
+            _conv(c3, mid, 3, bias=True, device=device, dtype=dtype),
             ABN(mid, activation="leaky_relu", device=device),
-            nn.Dropout2d(DROP_RATE),
-            _conv(mid, num_classes, 1, bias=True, device=device),
+            Dropout2d(drop_rate),
+            _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype),
         )
         self.reset_parameters(generator)
 
@@ -198,7 +255,10 @@ class ResPSPNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """The 7-tuple; `generator` draws the train-mode dropout masks."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
@@ -207,19 +267,22 @@ class ResPSPNet(nn.Module):
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         x4 = self.layer4(x3)
-        x_dsn = self.dsn(x3)
-        feat_after_psp = self.pspmodule(x4)
+        conv1, bn, dropout, conv2 = self.dsn
+        x_dsn = conv2(dropout(bn(conv1(x3)), generator))
+        feat_after_psp = self.pspmodule(x4, generator)
         logits = self.head(feat_after_psp)
         return (logits, x_dsn, feat_after_psp, x4, x3, x2, x1)
 
 
 def teacher_model(num_classes: int = 19, device: Device = None,
-                  generator: Optional[torch.Generator] = None) -> ResPSPNet:
+                  generator: Optional[torch.Generator] = None,
+                  dtype: DType = None) -> ResPSPNet:
     return ResPSPNet(BOTTLENECK, (3, 4, 23, 3), num_classes, device=device,
-                     generator=generator)
+                     generator=generator, dtype=dtype)
 
 
 def student_model(num_classes: int = 19, device: Device = None,
-                  generator: Optional[torch.Generator] = None) -> ResPSPNet:
+                  generator: Optional[torch.Generator] = None,
+                  dtype: DType = None) -> ResPSPNet:
     return ResPSPNet(BASIC, (2, 2, 2, 2), num_classes, device=device,
-                     generator=generator)
+                     generator=generator, dtype=dtype)

@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-All of `csrc/*.cu` compiles into one shared library with a plain C
-interface:
+Each `csrc/*.cu` compiles into its own shared library with a plain C
+interface, all sources at once, one nvcc process each:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/libskd_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>_<hash>.so csrc/<name>.cu
 
-`<hash>` covers the sources and the flags, so an edited kernel rebuilds and an
+`<hash>` covers the source and the flags, so an edited kernel rebuilds and an
 unchanged one loads from `build/kernels/` (git-ignored, at the repository
 root). A build takes seconds; `torch.utils.cpp_extension.load`, whose sources
 include PyTorch's headers, takes minutes and is deliberately not used.
@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -36,13 +37,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes of each exported C function (restype is always int: the
 # cudaError_t of the launch)
 _SIGNATURES = {
     "skd_upsampled_argmax": [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
                              _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
                              _c_int, _c_int, _c_int, _c_void_p],
+    "skd_upsampled_ce_fwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 10,
+                             *[_c_int] * 7, _c_float, _c_void_p],
+    "skd_upsampled_ce_bwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 14,
+                             *[_c_int] * 7, _c_float, _c_int, _c_int, _c_void_p],
 }
 
 
@@ -66,50 +71,77 @@ def _sources() -> list[Path]:
     return srcs
 
 
-def _library_path(srcs: list[Path]) -> Path:
+def _library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libskd_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_log() -> str:
-    """nvcc's output (with the ptxas register/spill report) of the library
+    """nvcc's output (with the ptxas register/spill report) of the libraries
     that `load_kernels` built or found, or '' if none is built yet."""
-    log = _library_path(_sources()).with_suffix(".log")
-    return log.read_text() if log.is_file() else ""
+    logs = [_library_path(src).with_suffix(".log") for src in _sources()]
+    return "".join(log.read_text() for log in logs if log.is_file())
+
+
+def _build_missing(srcs: list[Path]) -> None:
+    """Start one nvcc per source that has no library yet, all at once, and
+    wait for all of them. Each builds into a temporary name and is renamed,
+    so a concurrent process never loads a half-written library."""
+    todo = [src for src in srcs if not _library_path(src).is_file()]
+    if not todo:
+        return
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for src in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((src, tmp, cmd, proc))
+        failures = []
+        for src, tmp, cmd, proc in jobs:
+            out, _ = proc.communicate()
+            took = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+                continue
+            lib_path = _library_path(src)
+            lib_path.with_suffix(".log").write_text(
+                f"{' '.join(cmd)}\nbuilt in {took:.3f} s\n{out}")
+            os.replace(tmp, lib_path)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    finally:
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 @functools.cache
-def load_kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; argtypes are set."""
+def load_kernels() -> types.SimpleNamespace:
+    """Build (if needed) and load the kernel libraries; returns the exported
+    C functions of `_SIGNATURES` as attributes, with their argtypes set."""
     if not torch.cuda.is_available():
         raise RuntimeError("the port's CUDA kernels need a CUDA device; "
                            "CPU tensors take the plain PyTorch versions")
     srcs = _sources()
-    lib_path = _library_path(srcs)
-    if not lib_path.is_file():
-        nvcc = _find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build into a temporary name and rename: a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        took = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(
-            f"{' '.join(cmd)}\nbuilt in {took:.3f} s\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    _build_missing(srcs)
+    libs = [ctypes.CDLL(str(_library_path(src))) for src in srcs]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]
+        if len(found) != 1:
+            raise RuntimeError(f"{name} is exported by {len(found)} kernel libraries, not 1")
+        fn = found[0]
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)

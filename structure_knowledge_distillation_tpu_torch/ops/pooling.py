@@ -1,4 +1,4 @@
-"""Pooling ops on NCHW tensors, forward only.
+"""Pooling ops on NCHW tensors.
 
 Counterpart of `structure_knowledge_distillation_tpu/ops/pooling.py`, which
 rebuilds torch's pooling semantics on XLA. Here torch's own operators are
@@ -10,8 +10,13 @@ those semantics:
   * adaptive average pooling with torch's floor/ceil bin edges, which overlap
     when the input size does not divide the output size (65 → 6 bins).
 
-The first-match custom VJP of the non-overlapping max pool belongs to the
-train slice (ROADMAP Queue A, train step).
+Gradients are torch's own. For the non-overlapping ceil-mode pool of the Pa
+loss (k = s = 32 on 65² → 3²) the JAX package writes a tiled first-match
+custom VJP (`pooling.py:103-131`): a tie routes the gradient to the first
+maximum in row-major window order. `F.max_pool2d` keeps the first maximum of
+a window (a strict `>` scan in row-major order) and its backward routes to
+that index, which is the same rule; a test holds the two gradients equal on
+tied inputs.
 """
 
 from __future__ import annotations

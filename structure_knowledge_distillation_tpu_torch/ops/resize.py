@@ -46,12 +46,15 @@ def interp_matrix_align_corners(n_in: int, n_out: int,
     return torch.from_numpy(_interp_matrix_np(n_in, n_out)).to(device)
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int],
+                                  exact: bool = True) -> torch.Tensor:
     """Bilinear align-corners resize of an NCHW tensor to `size` = (H, W).
 
     Matches ``F.interpolate(mode='bilinear', align_corners=True)`` up to float
-    association. The arithmetic is float32 whatever the input dtype, and the
-    result keeps the input dtype, as in the JAX version's exact mode.
+    association. With `exact` (the default) the arithmetic is float32 whatever
+    the input dtype, and the result keeps the input dtype, as in the JAX
+    version's exact mode. `exact=False` interpolates in the input's own dtype
+    (the JAX non-exact mode, which its bf16 `criterion_dsn` takes).
     """
     if x.dim() != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
@@ -61,6 +64,9 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int]) -> tor
         return x
     a_h = interp_matrix_align_corners(h_in, h_out, x.device)
     a_w = interp_matrix_align_corners(w_in, w_out, x.device)
+    if not exact and x.dtype != torch.float32:
+        a_h, a_w = a_h.to(x.dtype), a_w.to(x.dtype)
+        return torch.matmul(torch.matmul(a_h, x), a_w.t())
     # (N,C,h,w) --A_h--> (N,C,H,w) --A_wᵀ--> (N,C,H,W)
     y = torch.matmul(torch.matmul(a_h, x.float()), a_w.t())
     return y.to(x.dtype)

@@ -1,0 +1,252 @@
+"""Cross-entropy over align-corners-upsampled logits (kernels K2–K5).
+
+Counterpart of `structure_knowledge_distillation_tpu/ops/pallas_ce.py`. The
+DSN loss upsamples stride-8 logits to the label resolution and takes the
+ignore-masked mean cross-entropy (reference utils/criterion.py:179-188).
+Done literally at the train shape that materialises an (8,19,512,512) f32
+tensor per head, and as much again for its gradient.
+
+`upsampled_ce_loss` (one head, K2/K3) and `upsampled_ce_loss_dsn` (main and
+aux heads in one pass, CE(main↑) + dsn_weight·CE(aux↑), K4/K5) are
+`torch.autograd.Function`s. On a CUDA tensor their forward and backward are
+the hand-written kernels of `csrc/upsampled_ce.cu`, which never materialise
+the upsampled logits; on a CPU tensor they take the `*_plain` versions beside
+them (resize with the f32 align-corners matrices, then `cross_entropy_ignore`,
+differentiated by autograd). There is no size gate: the JAX package's VMEM
+budget was a TPU measure.
+
+Logits are NCHW, float32 or bfloat16; the arithmetic is f32 and the
+gradient comes back in the logits' dtype. Labels are (N, H, W) integers.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
+    _device_tables,
+    tap_tables,
+)
+
+__all__ = [
+    "cross_entropy_ignore",
+    "upsampled_ce_loss",
+    "upsampled_ce_loss_dsn",
+    "upsampled_ce_loss_plain",
+    "upsampled_ce_loss_dsn_plain",
+    "tap_ranges",
+]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_THREADS = 256  # csrc/upsampled_ce.cu kFwdThreads: one partial per block
+_SMEM_BYTES = 48 * 1024
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = 255) -> torch.Tensor:
+    """Mean CE over non-ignored pixels; logits (N, C, H, W), labels (N, H, W).
+
+    lse − picked with f32 accumulation and a detached max shift, as the JAX
+    `losses/task.py::cross_entropy_ignore`."""
+    labels = labels.long()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    m = logits.detach().amax(dim=1, keepdim=True)
+    lse = m[:, 0].float() + torch.log(torch.exp((logits - m).float()).sum(dim=1))
+    picked = logits.gather(1, safe[:, None])[:, 0]
+    ce = lse - picked.float()
+    total = torch.where(mask, ce, torch.zeros_like(ce)).sum()
+    count = mask.sum().clamp_min(1)
+    return total / count
+
+
+def upsampled_ce_loss_plain(logits: torch.Tensor, labels: torch.Tensor,
+                            out_size: tuple[int, int], ignore_index: int = 255) -> torch.Tensor:
+    """The plain version of K2/K3: f32 align-corners resize, then CE."""
+    up = resize_bilinear_align_corners(logits.float(), out_size)
+    return cross_entropy_ignore(up, labels, ignore_index)
+
+
+def upsampled_ce_loss_dsn_plain(logits: torch.Tensor, aux_logits: torch.Tensor,
+                                labels: torch.Tensor, out_size: tuple[int, int],
+                                ignore_index: int = 255, dsn_weight: float = 0.4) -> torch.Tensor:
+    """The plain version of K4/K5: CE(main↑) + dsn_weight·CE(aux↑)."""
+    return (upsampled_ce_loss_plain(logits, labels, out_size, ignore_index)
+            + dsn_weight * upsampled_ce_loss_plain(aux_logits, labels, out_size, ignore_index))
+
+
+def tap_ranges(n_in: int, n_out: int) -> np.ndarray:
+    """(2, n_in) int32 [start, end) of the output samples whose taps touch
+    each input sample: the rows of the transposed interpolation that the
+    backward gathers over. The samples are contiguous because the taps are
+    monotone in the output index (checked); an input sample that no tap
+    touches gets the empty range [0, 0)."""
+    idx, wt = tap_tables(n_in, n_out)
+    out = np.zeros((2, n_in), np.int64)
+    for j in range(n_in):
+        hits = np.nonzero((idx[0] == j) | ((idx[1] == j) & (wt[1] != 0)))[0]
+        if hits.size:
+            if hits[-1] - hits[0] + 1 != hits.size:
+                raise AssertionError(f"taps of input sample {j} are not contiguous")
+            out[:, j] = hits[0], hits[-1] + 1
+    return out.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_ranges(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(tap_ranges(n_in, n_out)).to(device)
+
+
+def _check(heads: tuple, labels: torch.Tensor, out_size) -> tuple[int, int]:
+    x = heads[0]
+    if x.dim() != 4:
+        raise ValueError(f"expected (N, C, h, w) logits, got shape {tuple(x.shape)}")
+    for h in heads:
+        if h.dtype not in _DTYPE_CODES:
+            raise TypeError(f"logits must be float32 or bfloat16, got {h.dtype}")
+        if h.shape != x.shape or h.dtype != x.dtype or h.device != x.device:
+            raise ValueError("the two heads must agree in shape, dtype and device")
+    h_out, w_out = (int(s) for s in out_size)
+    if labels.shape != (x.shape[0], h_out, w_out):
+        raise ValueError(f"labels {tuple(labels.shape)} do not match logits "
+                         f"{tuple(x.shape)} and out_size {out_size}")
+    if h_out <= 0 or w_out <= 0 or x.numel() == 0:
+        raise ValueError(f"empty input: logits {tuple(x.shape)}, out_size {out_size}")
+    return h_out, w_out
+
+
+def _launch_fwd(heads: tuple, labels: torch.Tensor, out_size, ignore_index: int,
+                dsn_weight: float):
+    from structure_knowledge_distillation_tpu_torch.ops._build import load_kernels
+
+    x = heads[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"no upsampled CE kernel for device {x.device}")
+    if not all(h.is_contiguous() for h in heads):
+        raise ValueError("logits must be contiguous (NCHW)")
+    lib = load_kernels()
+    n, c, h_in, w_in = x.shape
+    h_out, w_out = out_size
+    dev = x.device
+    row_idx, row_wt = _device_tables(h_in, h_out, dev)
+    col_idx, col_wt = _device_tables(w_in, w_out, dev)
+    nparts = -(-n * h_out * w_out // _FWD_THREADS)
+    part_sums = torch.empty(2 * nparts, dtype=torch.float32, device=dev)
+    part_cnt = torch.empty(nparts, dtype=torch.int32, device=dev)
+    sums = torch.empty(2, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    aux = heads[-1]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.skd_upsampled_ce_fwd(
+            x.data_ptr(), aux.data_ptr(), _DTYPE_CODES[x.dtype], len(heads),
+            labels.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
+            col_wt.data_ptr(), part_sums.data_ptr(), part_cnt.data_ptr(), sums.data_ptr(),
+            count.data_ptr(), loss.data_ptr(), n, c, h_in, w_in, h_out, w_out,
+            int(ignore_index), float(dsn_weight), stream)
+    if err != 0:
+        raise RuntimeError(f"upsampled CE forward kernel launch failed: cudaError {err}")
+    return loss, count
+
+
+def _launch_bwd(heads: tuple, labels: torch.Tensor, count: torch.Tensor, grad: torch.Tensor,
+                out_size, ignore_index: int, dsn_weight: float) -> list:
+    from structure_knowledge_distillation_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()
+    x = heads[0]
+    n, c, h_in, w_in = x.shape
+    h_out, w_out = out_size
+    dev = x.device
+    c_all = len(heads) * c
+    # shared memory of the row kernel: max and Σexp of 2 heads + the label per
+    # pixel, then a chunk of ck classes of d_up, all 4-byte words
+    ck = min(c_all, _SMEM_BYTES // (4 * w_out) - 5)
+    if ck < 1:
+        raise ValueError(f"output width {w_out} too large for the CE backward kernel")
+    smem = (5 + ck) * w_out * 4
+    row_idx, row_wt = _device_tables(h_in, h_out, dev)
+    col_idx, col_wt = _device_tables(w_in, w_out, dev)
+    col_rng = _device_ranges(w_in, w_out, dev)
+    row_rng = _device_ranges(h_in, h_out, dev)
+    grad = grad.detach().to(torch.float32).reshape(1).contiguous()
+    tmp = torch.empty((n, c_all, h_out, w_in), dtype=torch.float32, device=dev)
+    dxs = [torch.empty_like(h) for h in heads]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.skd_upsampled_ce_bwd(
+            x.data_ptr(), heads[-1].data_ptr(), _DTYPE_CODES[x.dtype], len(heads),
+            labels.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
+            col_wt.data_ptr(), col_rng[0].data_ptr(), col_rng[1].data_ptr(),
+            row_rng[0].data_ptr(), row_rng[1].data_ptr(), grad.data_ptr(), count.data_ptr(),
+            tmp.data_ptr(), dxs[0].data_ptr(), dxs[-1].data_ptr(), n, c, h_in, w_in, h_out,
+            w_out, int(ignore_index), float(dsn_weight), ck, smem, stream)
+    if err != 0:
+        raise RuntimeError(f"upsampled CE backward kernel launch failed: cudaError {err}")
+    return dxs
+
+
+def _labels_i32(labels: torch.Tensor) -> torch.Tensor:
+    return labels.to(torch.int32).contiguous()
+
+
+class _UpsampledCE(torch.autograd.Function):
+    """Forward and backward on the card; `counter` is the public wrapper whose
+    `launches`/`bwd_launches` count the kernel launches."""
+
+    @staticmethod
+    def forward(ctx, counter, out_size, ignore_index, dsn_weight, labels, *heads):
+        labels = _labels_i32(labels)
+        loss, count = _launch_fwd(heads, labels, out_size, ignore_index, dsn_weight)
+        counter.launches += 1
+        ctx.save_for_backward(labels, count, *heads)
+        ctx.meta = (counter, out_size, ignore_index, dsn_weight)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        labels, count, *heads = ctx.saved_tensors
+        counter, out_size, ignore_index, dsn_weight = ctx.meta
+        dxs = _launch_bwd(tuple(heads), labels, count, grad, out_size, ignore_index,
+                          dsn_weight)
+        counter.bwd_launches += 1
+        return (None, None, None, None, None, *dxs)
+
+
+def upsampled_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      out_size: tuple[int, int], ignore_index: int = 255) -> torch.Tensor:
+    """mean CE(resize_align_corners(logits, out_size), labels) with ignore.
+
+    logits (N, C, h, w) float32/bfloat16, labels (N, H, W) int. A CPU tensor
+    takes `upsampled_ce_loss_plain`; a CUDA tensor launches K2 forward and K3
+    backward, or raises."""
+    out_size = _check((logits,), labels, out_size)
+    if logits.device.type == "cpu":
+        return upsampled_ce_loss_plain(logits, labels, out_size, ignore_index)
+    return _UpsampledCE.apply(upsampled_ce_loss, out_size, ignore_index, 0.0, labels, logits)
+
+
+def upsampled_ce_loss_dsn(logits: torch.Tensor, aux_logits: torch.Tensor,
+                          labels: torch.Tensor, out_size: tuple[int, int],
+                          ignore_index: int = 255, dsn_weight: float = 0.4) -> torch.Tensor:
+    """CE(main↑) + dsn_weight·CE(aux↑) in one pass over both heads.
+
+    The heads must agree in shape and dtype. A CPU tensor takes
+    `upsampled_ce_loss_dsn_plain`; a CUDA tensor launches K4 forward and K5
+    backward, or raises."""
+    out_size = _check((logits, aux_logits), labels, out_size)
+    if logits.device.type == "cpu":
+        return upsampled_ce_loss_dsn_plain(logits, aux_logits, labels, out_size,
+                                           ignore_index, dsn_weight)
+    return _UpsampledCE.apply(upsampled_ce_loss_dsn, out_size, ignore_index, dsn_weight,
+                              labels, logits, aux_logits)
+
+
+for _fn in (upsampled_ce_loss, upsampled_ce_loss_dsn):
+    _fn.launches = 0      # forward kernel launches
+    _fn.bwd_launches = 0  # backward kernel launches

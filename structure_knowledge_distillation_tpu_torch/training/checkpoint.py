@@ -5,6 +5,9 @@ training/checkpoint.py`. The port's `ResPSPNet` already uses the reference's
 state-dict names, so:
   * `state_dict_from_jax` turns the JAX package's variable tree into that
     state dict (what its `export_torch_respspnet` returns, without flax);
+  * `discriminator_state_dict_from_jax` does the same for the SAGAN
+    discriminator's `{"params", "batch_stats", "spectral"}` tree (what its
+    `export_torch_discriminator` returns);
   * `load_reference_state_dict` merges a torch state dict into a model with
     the JAX importer's semantics: `module.` stripped, the released teachers'
     `head.0.*`/`head.1.*` remapped, `fc.*` and `num_batches_tracked` dropped,
@@ -22,7 +25,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "load_torch_state_dict", "load_reference_state_dict"]
+__all__ = ["state_dict_from_jax", "discriminator_state_dict_from_jax",
+           "load_torch_state_dict", "load_reference_state_dict"]
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +79,41 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
             if path[-1] == "kernel" and v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
             out[f"{torch_mod}.{_LEAF[path[-1]]}"] = v
+    return out
+
+
+def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's Discriminator variables as the reference's torch
+    state dict of numpy arrays: the preprocess BN under
+    `preprocess_additional`, each SN conv under `l{i}.0.module` (HWIO weight
+    → OIHW `weight_bar`, spectral u/v → `weight_u`/`weight_v`), the
+    attention convs OIHW, and the final conv under `last.0`."""
+    bn_leaf = {"weight": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    oihw = lambda v: np.transpose(v, (3, 2, 0, 1))  # noqa: E731  HWIO -> OIHW
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats", "spectral"):
+        for path, value in _flatten(variables.get(coll, {})).items():
+            v = np.asarray(value)
+            mod, leaf = path[:-1], path[-1]
+            if mod == ("preprocess_bn",):
+                out[f"preprocess_additional.{bn_leaf[leaf]}"] = v
+            elif mod and mod[0] in ("l1", "l2", "l3", "l4"):
+                if coll == "spectral":
+                    out[f"{mod[0]}.0.module.weight_{leaf}"] = v
+                elif leaf == "weight":
+                    out[f"{mod[0]}.0.module.weight_bar"] = oihw(v)
+                else:
+                    out[f"{mod[0]}.0.module.bias"] = v
+            elif mod == ("last",):
+                out["last.0.weight" if leaf == "kernel" else "last.0.bias"] = (
+                    oihw(v) if leaf == "kernel" else v)
+            elif mod and mod[0] in ("attn1", "attn2"):
+                if leaf == "gamma":
+                    out[f"{mod[0]}.gamma"] = v
+                elif leaf == "kernel":
+                    out[f"{mod[0]}.{mod[1]}.weight"] = oihw(v)
+                else:
+                    out[f"{mod[0]}.{mod[1]}.bias"] = v
     return out
 
 

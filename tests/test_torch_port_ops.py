@@ -122,6 +122,12 @@ def test_batch_norm_2d_plain_gamma_matches_jax():
 
 
 def test_abn_train_mode_raises_naming_roadmap():
+    """Train mode used to raise until its ROADMAP item was ported; now it
+    normalises with the batch statistics and moves the running ones (the
+    full comparison with JAX is in test_torch_port_train_parts.py)."""
     mod = tbn.ABN(4).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mod(torch.zeros(1, 4, 2, 2))
+    x = torch.arange(32, dtype=torch.float32).reshape(2, 4, 2, 2)
+    z = mod(x)
+    mean = x.mean(dim=(0, 2, 3))
+    np.testing.assert_allclose(z.mean(dim=(0, 2, 3)).detach().numpy(), 0.0, atol=1e-5)
+    np.testing.assert_allclose(mod.running_mean.numpy(), 0.1 * mean.numpy(), rtol=1e-6)

@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card, in phases: the whole-image
-eval path (`training/evaluate.py::evaluate_main`) at Cityscapes full
-resolution, and the Pi+Pa+Ho distillation train step
-(`training/trainer.py::KDTrainer.fit`) at the reference recipe. Each phase
-prints one line and any failure ends the run with a non-zero exit:
+Drives the port's main paths on the card, in phases: the whole-image eval
+path (`training/evaluate.py::evaluate_main`) at Cityscapes full resolution,
+the Pi+Pa+Ho distillation train step (`training/trainer.py::KDTrainer.fit`)
+at the reference recipe, both again with the fused ABN (`bn_fused=True`,
+kernels K6–K8), and the conv3x3 probe (K9). Each phase prints one line and
+any failure ends the run with a non-zero exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
      the torch/CUDA versions and the TF32 flags as set;
@@ -35,7 +36,25 @@ prints one line and any failure ends the run with a non-zero exit:
      K4 and K5 launched once per step;
   9. train_gpu_vs_cpu: one f32 step of the CPU tests' small configuration on
      cuda (TF32 off) and on cpu from the same weights and GP α: losses and
-     parameter updates agree.
+     parameter updates agree;
+ 10. bn_kernel: the fused-ABN kernels K6 (with train and eval scale/shift),
+     K7 and K8 (training True and False) against their plain versions at the
+     path's shapes (the stem, R18 layer4, the R101 layer4 eval), activations
+     none, leaky_relu and elu, f32 and bf16: the f32 forward within 1e-6
+     relative, the bf16 forward within one bf16 ulp, K7's sums within 1e-5
+     of their largest entry, dx within 1e-5 of max|dx| (f32) or one bf16
+     ulp of it (bf16), two runs bit-identical; warm median device times;
+ 11. train_fused: phase 8's setup with bn_fused=True teacher and student,
+     through make_train_step (the function KDTrainer.fit calls); every loss
+     finite, student and D parameters changed, K6 launched once per ABN of
+     teacher and student per step, K7 and K8 once per student ABN;
+ 12. train_fused_gpu_vs_cpu: phase 9 with bn_fused=True on both devices;
+ 13. eval_fused: phase 4's student with bn_fused=True through evaluate_main;
+     K6 launched once per ABN per frame, mIoU within 1e-3 of the unfused
+     model's on the same weights and frames, class maps agree in ≥ 0.999;
+ 14. conv3x3_probe: the JAX probe's main (scripts/bench_pallas_conv.py) on
+     the card: K9 at (8,256,256,64) bf16 → Cout 64 and 128 within 2⁻⁷ of
+     max|out| of the plain version (cuDNN), f32 with TF32 off within 1e-5.
 
 The last two lines are the kernels' JSON record and the contract line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -56,12 +75,31 @@ import torch
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import SyntheticSegDataset, batch_iterator
 from structure_knowledge_distillation_tpu_torch.models import (
+    BASIC,
+    BOTTLENECK,
     Discriminator,
     ResPSPNet,
     student_model,
     teacher_model,
 )
-from structure_knowledge_distillation_tpu_torch.ops import _build
+from structure_knowledge_distillation_tpu_torch.ops import _build, fused_bn
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
+    ABN,
+    _moments,
+    abn_normalize,
+    abn_train,
+)
+from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
+    abn_fused_eval,
+    abn_fused_train,
+    bn_act,
+    bn_act_plain,
+    bn_grad_input,
+    bn_grad_input_plain,
+    bn_grad_sums,
+    bn_grad_sums_plain,
+)
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
@@ -107,6 +145,20 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # CPU parity tests (tests/test_torch_port_train_step.py)
 STEP_LOSS_RTOL, STEP_LOSS_ATOL = 2e-3, 2e-4
 STEP_UPDATE_REL_L2, STEP_UPDATE_COS, UPDATE_FLOOR = 2e-2, 0.999, 1e-4
+# K6–K8 vs their plain versions: the same f32 operations in the same order
+# (the ELU's expm1f aside); K7 sums in another order; the plain K8 divides
+# by the slope as a multiplication by its reciprocal
+BN_SHAPES = {"stem": (8, 64, 256, 256), "R18 layer4": (8, 512, 65, 65),
+             "R101 layer4 eval": (8, 2048, 65, 65)}
+BN_FWD_RTOL = 1e-6
+BN_SUM_REL = 1e-5
+BN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+BN_EPS = 1e-5
+# the fused eval against the unfused one on the same weights and frames
+EVAL_MIOU_ATOL = 1e-3
+# K9 vs cuDNN (TF32 off): f32 sums in another order, then one bf16 rounding
+CONV_SHAPE, CONV_COUTS = (8, 256, 256, 64), (64, 128)
+CONV_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -138,6 +190,23 @@ def cuda_median_ms(fn, reps: int = 20, trials: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+# each kernel's launch count: (wrapper, attribute)
+COUNTERS = {"K1": (upsampled_argmax, "launches"), "K2": (upsampled_ce_loss, "launches"),
+            "K3": (upsampled_ce_loss, "bwd_launches"), "K4": (upsampled_ce_loss_dsn, "launches"),
+            "K5": (upsampled_ce_loss_dsn, "bwd_launches"), "K6": (bn_act, "launches"),
+            "K7": (bn_grad_sums, "launches"), "K8": (bn_grad_input, "launches"),
+            "K9": (conv3x3, "launches")}
+
+
+def zero_counts() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
 
 
 def randomize_bn_stats(model: torch.nn.Module, seed: int) -> None:
@@ -230,31 +299,48 @@ def phase_kernel(device: torch.device) -> dict:
     return {"max_abs_err": max_gap, **headline}
 
 
-def phase_slice(device: torch.device) -> int:
+def _eval_frames() -> list:
+    ds = SyntheticSegDataset(FRAMES, FULL_RES, NUM_CLASSES, seed=0)
+    return list(batch_iterator(ds, 1, shuffle=False, drop_last=False))
+
+
+def _eval_student(device) -> ResPSPNet:
+    """Phase 4's student: the full-width R18 with seeded weights and random
+    running statistics, in eval mode."""
     model = student_model(NUM_CLASSES, device=device, generator=torch.Generator().manual_seed(0))
     randomize_bn_stats(model, 1)
-    model.eval()
-    ds = SyntheticSegDataset(FRAMES, FULL_RES, NUM_CLASSES, seed=0)
-    frames = list(batch_iterator(ds, 1, shuffle=False, drop_last=False))
-    expect = sum(int((b[1] != 255).sum()) for b in frames)  # every pixel is in bounds
+    return model.eval()
 
+
+def _timed_eval(model, frames, device):
+    """evaluate_main over `frames` after one warm-up frame, with every launch
+    count set to 0 and the peak-memory counter reset just before the sweep:
+    (mIoU, confusion, seconds, launch counts)."""
     evaluate_main(model, frames[:1], NUM_CLASSES, out_size=FULL_RES, device=device)  # warm-up
     torch.cuda.synchronize()
-    upsampled_argmax.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     miou, _, conf = evaluate_main(model, frames, NUM_CLASSES, out_size=FULL_RES, device=device)
     torch.cuda.synchronize()
-    took = time.perf_counter() - t0
-    launches = upsampled_argmax.launches
+    return miou, conf, time.perf_counter() - t0, read_counts()
+
+
+def phase_slice(device: torch.device) -> dict:
+    model = _eval_student(device)
+    frames = _eval_frames()
+    expect = sum(int((b[1] != 255).sum()) for b in frames)  # every pixel is in bounds
+    miou, conf, took, counts = _timed_eval(model, frames, device)
+    launches = counts["K1"]
 
     check(math.isfinite(miou) and 0.0 <= miou <= 1.0, f"student mIoU {miou}")
     check(int(conf.sum()) == expect, f"confusion counts {int(conf.sum())} pixels, expected {expect}")
     check(launches == FRAMES, f"upsampled_argmax launched {launches} times for {FRAMES} frames")
-    phase(4, "slice", model="student R18 full width f32", frames=FRAMES, miou=miou,
-          ms_per_frame=1e3 * took / FRAMES, launches=launches,
-          max_memory_allocated=torch.cuda.max_memory_allocated(device))
-    return launches
+    check(counts["K6"] == 0, f"the unfused student launched K6 {counts['K6']} times")
+    stats = {"miou": miou, "ms_per_frame": 1e3 * took / FRAMES, "launches": launches,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+    phase(4, "slice", model="student R18 full width f32", frames=FRAMES, **stats)
+    return stats
 
 
 def phase_gpu_vs_cpu(device: torch.device) -> None:
@@ -398,52 +484,129 @@ def _flat_params(module: torch.nn.Module) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1).float() for p in module.parameters()])
 
 
+def _train_batches(cfg) -> list:
+    ds = SyntheticSegDataset((WARMUP_STEPS + TIMED_STEPS) * cfg.batch_size, TRAIN_CROP,
+                             NUM_CLASSES, seed=0)
+    return list(batch_iterator(ds, cfg.batch_size, shuffle=False))
+
+
+def _check_steps(steps: list, s_before, d_before, student, disc) -> None:
+    check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"{len(steps)} logged steps")
+    for m in steps:
+        check(all(math.isfinite(v) for v in m.values()), f"a loss is not finite: {m}")
+    check(not torch.equal(s_before, _flat_params(student)), "student unchanged")
+    check(not torch.equal(d_before, _flat_params(disc)), "D unchanged")
+
+
 def phase_train(device: torch.device) -> dict:
     cfg = _train_config()
     teacher = teacher_model(NUM_CLASSES, generator=torch.Generator().manual_seed(2))
     randomize_bn_stats(teacher, 3)
     trainer = KDTrainer(cfg, teacher_state=teacher.state_dict())
     del teacher
-    ds = SyntheticSegDataset((WARMUP_STEPS + TIMED_STEPS) * cfg.batch_size, TRAIN_CROP,
-                             NUM_CLASSES, seed=0)
-    batches = list(batch_iterator(ds, cfg.batch_size, shuffle=False))
+    batches = _train_batches(cfg)
     s_before, d_before = _flat_params(trainer.student), _flat_params(trainer.discriminator)
 
     trainer.fit(batches[:WARMUP_STEPS])
     torch.cuda.synchronize()
-    upsampled_ce_loss_dsn.launches = upsampled_ce_loss_dsn.bwd_launches = 0
-    upsampled_ce_loss.launches = upsampled_ce_loss.bwd_launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     trainer.fit(batches[WARMUP_STEPS:])
     torch.cuda.synchronize()
     took = time.perf_counter() - t0
-    launches = {"K4": upsampled_ce_loss_dsn.launches, "K5": upsampled_ce_loss_dsn.bwd_launches,
-                "K2": upsampled_ce_loss.launches, "K3": upsampled_ce_loss.bwd_launches}
+    launches = read_counts()
 
     steps = [m for _, m in trainer.history]
-    check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"{len(steps)} logged steps")
-    for m in steps:
-        check(all(math.isfinite(v) for v in m.values()), f"a loss is not finite: {m}")
-    check(not torch.equal(s_before, _flat_params(trainer.student)), "student unchanged")
-    check(not torch.equal(d_before, _flat_params(trainer.discriminator)), "D unchanged")
+    _check_steps(steps, s_before, d_before, trainer.student, trainer.discriminator)
     check(launches["K4"] == TIMED_STEPS and launches["K5"] == TIMED_STEPS,
           f"K4/K5 launched {launches['K4']}/{launches['K5']} times in {TIMED_STEPS} steps")
+    check(launches["K6"] == 0, f"the unfused step launched K6 {launches['K6']} times")
+    stats = {"ms_per_step": 1e3 * took / TIMED_STEPS,
+             "images_per_second": cfg.batch_size * TIMED_STEPS / took,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
     phase(8, "train", model="R101 teacher -> R18 student, full width, bf16 convs",
-          batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS,
-          ms_per_step=1e3 * took / TIMED_STEPS,
-          images_per_second=cfg.batch_size * TIMED_STEPS / took, launches=launches,
-          max_memory_allocated=torch.cuda.max_memory_allocated(device),
+          batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS, **stats,
+          launches={k: launches[k] for k in ("K2", "K3", "K4", "K5")},
           first_step=steps[0], last_step=steps[-1])
-    return launches
+    return {"launches": launches, **stats}
 
 
-def _small_state(device, sd=None) -> KDTrainState:
+def _fused_abns(*models) -> int:
+    return sum(isinstance(m, ABN) and m.fused for model in models for m in model.modules())
+
+
+def phase_train_fused(device: torch.device, unfused: dict) -> dict:
+    """Phase 8's models and batches with bn_fused=True teacher and student:
+    the R101 teacher from the same seed and running statistics, student and
+    D drawn from the trainer's generator as `KDTrainer` draws them, the steps
+    through `make_train_step` and fed as `KDTrainer.fit` feeds them."""
+    cfg = _train_config()
+    dtype = torch.bfloat16
+    teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), NUM_CLASSES, device=device,
+                        generator=torch.Generator().manual_seed(2), dtype=dtype, bn_fused=True)
+    randomize_bn_stats(teacher, 3)
+    teacher.requires_grad_(False)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    student = ResPSPNet(BASIC, (2, 2, 2, 2), NUM_CLASSES, device=device, dtype=dtype,
+                        generator=gen, bn_fused=True)
+    disc = Discriminator(NUM_CLASSES, preprocess_mode=cfg.preprocess_gan_mode,
+                         image_size=cfg.imsize_for_adv, conv_dim=cfg.adv_conv_dim, dtype=dtype,
+                         device=device, generator=gen)
+    state = KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+    train_step = make_train_step(cfg)
+    n_teacher, n_student = _fused_abns(teacher), _fused_abns(student)
+    batches = _train_batches(cfg)
+    s_before, d_before = _flat_params(student), _flat_params(disc)
+    steps = []
+
+    def fit(part):
+        for batch in part:
+            images = torch.from_numpy(np.ascontiguousarray(batch[0])).to(device)
+            images = images.permute(0, 3, 1, 2).contiguous()
+            labels = torch.from_numpy(np.asarray(batch[1])).to(device)
+            metrics = train_step(state, images, labels, gen)
+            steps.append({k: float(v) for k, v in metrics.items()})  # log every step, as phase 8
+
+    fit(batches[:WARMUP_STEPS])
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    fit(batches[WARMUP_STEPS:])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = read_counts()
+
+    _check_steps(steps, s_before, d_before, student, disc)
+    expect = {"K6": (n_teacher + n_student) * TIMED_STEPS, "K7": n_student * TIMED_STEPS,
+              "K8": n_student * TIMED_STEPS, "K4": TIMED_STEPS, "K5": TIMED_STEPS}
+    for k, n in expect.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times in {TIMED_STEPS} steps, "
+                                f"expected {n}")
+    stats = {"ms_per_step": 1e3 * took / TIMED_STEPS,
+             "images_per_second": cfg.batch_size * TIMED_STEPS / took,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+    phase(11, "train_fused", model="R101 teacher -> R18 student, bn_fused, full width, bf16 convs",
+          batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS,
+          abn_modules={"teacher": n_teacher, "student": n_student}, **stats,
+          unfused={k: unfused[k] for k in stats},
+          launches={k: launches[k] for k in expect}, first_step=steps[0], last_step=steps[-1])
+    return {"launches": launches}
+
+
+def _small_state(device, sd=None, bn_fused: bool = False) -> KDTrainState:
     cfg = _small_config(device)
     g = torch.Generator().manual_seed(11)
     teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0,
-                        generator=g)
-    student = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, generator=g)
+                        generator=g, bn_fused=bn_fused)
+    student = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, generator=g,
+                        bn_fused=bn_fused)
     disc = Discriminator(7, 1, 33, 16, generator=g)
     if sd is not None:
         for model, state in zip((teacher, student, disc), sd):
@@ -468,26 +631,33 @@ def _small_config(device) -> TrainConfig:
                        device=str(device))
 
 
-def phase_train_gpu_vs_cpu(device: torch.device) -> None:
+def phase_train_gpu_vs_cpu(device: torch.device, bn_fused: bool = False) -> None:
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cpu = _small_state("cpu")
+        cpu = _small_state("cpu", bn_fused=bn_fused)
         start = [{k: v.clone() for k, v in m.state_dict().items()}
                  for m in (cpu.teacher, cpu.student, cpu.discriminator)]
-        gpu = _small_state(device, start)
+        gpu = _small_state(device, start, bn_fused)
         rng = np.random.RandomState(5)
         images = rng.randn(2, 3, 256, 256).astype(np.float32)
         images[1] = 3.0 * images[1] + 1.0  # two images of different statistics
         labels = rng.randint(0, 7, (2, 256, 256))
         labels[0, :16] = 255
         alpha = torch.from_numpy(rng.rand(2, 1, 1, 1).astype(np.float32))
-        before = upsampled_ce_loss_dsn.launches
+        zero_counts()
         m_gpu = make_train_step(_small_config(device))(
             gpu, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device),
             alpha=alpha.to(device))
-        check(upsampled_ce_loss_dsn.launches == before + 1, "the GPU step did not launch K4")
+        counts = read_counts()
+        check(counts["K4"] == 1, "the GPU step did not launch K4")
+        if bn_fused:
+            n_teacher, n_student = _fused_abns(gpu.teacher), _fused_abns(gpu.student)
+            check((counts["K6"], counts["K7"], counts["K8"]) ==
+                  (n_teacher + n_student, n_student, n_student),
+                  f"the fused GPU step launched K6/K7/K8 {counts['K6']}/{counts['K7']}/"
+                  f"{counts['K8']} times")
         m_cpu = make_train_step(_small_config("cpu"))(
             cpu, torch.from_numpy(images), torch.from_numpy(labels), alpha=alpha)
         loss_rel = {}
@@ -518,10 +688,222 @@ def phase_train_gpu_vs_cpu(device: torch.device) -> None:
                     worst = max(worst, (err / nt, f"{name}.{k}"))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
-    phase(9, "train_gpu_vs_cpu", loss_rel_diff=loss_rel, worst_update_rel_l2=worst[0],
+    phase(12 if bn_fused else 9, "train_fused_gpu_vs_cpu" if bn_fused else "train_gpu_vs_cpu",
+          loss_rel_diff=loss_rel, worst_update_rel_l2=worst[0],
           worst_update_tensor=worst[1], loss_rtol=STEP_LOSS_RTOL,
           update_rel_l2_max=STEP_UPDATE_REL_L2, update_cos_min=STEP_UPDATE_COS,
           update_floor=UPDATE_FLOOR)
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    mag = t.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bn_case(device, shape, dtype, activation, seed):
+    """x and an incoming gradient (non-zero mean) made on the card; the ABN
+    parameters (signed weights) and random running statistics; the train-
+    and eval-mode scale and shift; the saved output z of the train forward
+    (an ELU's kept above −1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x = (2.0 * torch.randn(shape, generator=g, device=device) + 0.3).to(dtype)
+    dz = (torch.randn(shape, generator=g, device=device) + 0.5).to(dtype)
+    w = (torch.where(torch.rand(c, generator=g, device=device) < 0.25, -1.0, 1.0)
+         * (0.5 + torch.rand(c, generator=g, device=device)))
+    b = 0.3 * torch.randn(c, generator=g, device=device)
+    r_mean = 0.1 * torch.randn(c, generator=g, device=device)
+    r_var = 0.5 + torch.rand(c, generator=g, device=device)
+    mean, var, _ = _moments(x.float())
+    gamma, tr_scale, tr_shift = fused_bn._scale_shift(mean, var, w, b, BN_EPS, True)
+    _, ev_scale, ev_shift = fused_bn._scale_shift(r_mean, r_var, w, b, BN_EPS, True)
+    z = bn_act_plain(x, tr_scale, tr_shift, activation)
+    if activation == "elu":
+        # below a pre-activation of about −5.5 a bf16 ELU output rounds to −1,
+        # which has no inverse (log1p(−1) = −inf, in the JAX package as here)
+        z = z.clamp_min(-0.95)
+    coef = gamma * torch.rsqrt(var + BN_EPS)
+    edz, eydz = (0.1 * torch.randn(c, generator=g, device=device) for _ in range(2))
+    return dict(x=x, dz=dz, w=w, b=b, r_mean=r_mean, r_var=r_var, gamma=gamma,
+                scale={"train": tr_scale, "eval": ev_scale},
+                shift={"train": tr_shift, "eval": ev_shift}, z=z, coef=coef, edz=edz, eydz=eydz)
+
+
+def _twice(fn, name: str):
+    """Two launches of `fn`; both must be bit-identical. Returns the first."""
+    a, b = fn(), fn()
+    for u, v in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+        same = (u == v) | (torch.isnan(u) & torch.isnan(v))
+        check(bool(same.all()), f"{name}: two runs differ in {int((~same).sum())} of "
+                                f"{u.numel()} values (NaN: {int(torch.isnan(u).sum())})")
+    return a
+
+
+def phase_bn_kernel(device: torch.device) -> dict:
+    """K6–K8 against their plain versions; returns the JSON fields per kernel:
+    K6 at the R101 layer4 eval shape, K7 and K8 at the stem, bf16, no
+    activation (the path's largest calls of each)."""
+    cases, record = [], {}
+    for where, shape in BN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for act in ("none", "leaky_relu", "elu"):
+                t = _bn_case(device, shape, dtype, act, len(cases))
+                name = f"{where} {tuple(shape)} {str(dtype)[6:]} {act}"
+                errs = {}
+                for mode in ("train", "eval"):
+                    sc, sh = t["scale"][mode], t["shift"][mode]
+                    z = _twice(lambda: bn_act(t["x"], sc, sh, act), f"K6 {name} {mode}")
+                    ref = bn_act_plain(t["x"], sc, sh, act)
+                    diff = (z.float() - ref.float()).abs()
+                    bound = (BN_FWD_RTOL * ref.float().abs() if dtype == torch.float32
+                             else _bf16_ulp(ref))
+                    check(z.dtype == dtype and bool((diff <= bound).all()),
+                          f"K6 {name} {mode}: max |diff| {diff.max().item()}")
+                    errs[f"K6 {mode}"] = diff.max().item()
+                prm = (t["z"], t["dz"], t["gamma"], t["b"])
+                sums = _twice(lambda: bn_grad_sums(*prm, act), f"K7 {name}")
+                for s, r in zip(sums, bn_grad_sums_plain(*prm, act)):
+                    err = (s - r).abs().max().item()
+                    check(err <= BN_SUM_REL * r.abs().max().item(),
+                          f"K7 {name}: max |diff| {err} vs max |sum| {r.abs().max().item()}")
+                    errs["K7"] = max(errs.get("K7", 0.0), err)
+                bwd = (*prm, t["coef"], t["edz"], t["eydz"], act, 0.01)
+                for training in (True, False):
+                    dx = _twice(lambda: bn_grad_input(*bwd, training),
+                                f"K8 {name} training={training}")
+                    ref = bn_grad_input_plain(*bwd, training)
+                    err = (dx.float() - ref.float()).abs().max().item()
+                    check(dx.dtype == dtype and
+                          err <= BN_DX_REL[dtype] * ref.float().abs().max().item(),
+                          f"K8 {name} training={training}: max |diff| {err}")
+                    errs[f"K8 training={training}"] = err
+                sc, sh = t["scale"]["eval"], t["shift"]["eval"]
+                ms = {"K6": cuda_median_ms(lambda: bn_act(t["x"], sc, sh, act)),
+                      "K6 plain": cuda_median_ms(lambda: bn_act_plain(t["x"], sc, sh, act)),
+                      "K7": cuda_median_ms(lambda: bn_grad_sums(*prm, act)),
+                      "K7 plain": cuda_median_ms(lambda: bn_grad_sums_plain(*prm, act)),
+                      "K8": cuda_median_ms(lambda: bn_grad_input(*bwd, True)),
+                      "K8 plain": cuda_median_ms(lambda: bn_grad_input_plain(*bwd, True))}
+                case = {"case": name, "max_abs_err": errs, "bit_identical": True, "ms": ms}
+                if dtype == torch.bfloat16 and act == "none":
+                    case["unfused_ms"] = _unfused_abn_ms(t, where)
+                    if where == "R101 layer4 eval":
+                        record["K6"] = {"max_abs_err": errs["K6 eval"], "ms": ms["K6"],
+                                        "plain_ms": ms["K6 plain"]}
+                    if where == "stem":
+                        record["K7"] = {"max_abs_err": errs["K7"], "ms": ms["K7"],
+                                        "plain_ms": ms["K7 plain"]}
+                        record["K8"] = {"max_abs_err": errs["K8 training=True"],
+                                        "ms": ms["K8"], "plain_ms": ms["K8 plain"]}
+                cases.append(case)
+                del t
+    phase(10, "bn_kernel", cases=cases)
+    return record
+
+
+def _unfused_abn_ms(t: dict, where: str) -> dict:
+    """The whole ABN, fused against the port's unfused one, on the same
+    tensors: the eval normalisation (abn_fused_eval vs abn_normalize) and the
+    train forward + backward (abn_fused_train vs abn_train)."""
+    x, w, b = t["x"], t["w"], t["b"]
+    with torch.no_grad():
+        out = {"eval_fused": cuda_median_ms(lambda: abn_fused_eval(
+                   x, w, b, t["r_mean"], t["r_var"], BN_EPS, "none")),
+               "eval_unfused": cuda_median_ms(lambda: abn_normalize(
+                   x, t["r_mean"], t["r_var"], w, b, eps=BN_EPS))}
+    if where == "R101 layer4 eval":  # the teacher is never trained
+        return out
+    xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+
+    def fwd_bwd(fn):
+        z = fn(xg, wg, bg, BN_EPS, "none")[0]
+        return torch.autograd.grad(z, (xg, wg, bg), t["dz"])
+
+    out["train_fwd_bwd_fused"] = cuda_median_ms(lambda: fwd_bwd(abn_fused_train), reps=10)
+    out["train_fwd_bwd_unfused"] = cuda_median_ms(lambda: fwd_bwd(abn_train), reps=10)
+    return out
+
+
+def phase_eval_fused(device: torch.device, unfused: dict) -> dict:
+    plain = _eval_student(device)
+    model = ResPSPNet(BASIC, (2, 2, 2, 2), NUM_CLASSES, device=device, bn_fused=True)
+    model.load_state_dict(plain.state_dict())
+    model.eval()
+    n_abn = _fused_abns(model)
+    frames = _eval_frames()
+    miou, conf, took, launches = _timed_eval(model, frames, device)
+    peak = torch.cuda.max_memory_allocated(device)
+    miou_plain, _, _ = evaluate_main(plain, frames, NUM_CLASSES, out_size=FULL_RES, device=device)
+
+    fused_fn = make_fast_val_fn(model, FULL_RES, NUM_CLASSES)
+    plain_fn = make_fast_val_fn(plain, FULL_RES, NUM_CLASSES)
+    same = total = 0
+    with torch.no_grad():
+        for image, label, size, _ in frames:
+            x = torch.from_numpy(np.ascontiguousarray(image)).to(device)
+            x = x.permute(0, 3, 1, 2).contiguous()
+            lab = torch.from_numpy(np.asarray(label[0]).astype(np.uint8)).to(device)
+            h, w = int(size[0][0]), int(size[0][1])
+            pred = fused_fn(x, lab, h, w)[0]
+            same += int((pred == plain_fn(x, lab, h, w)[0]).sum())
+            total += pred.numel()
+    agree = same / total
+
+    check(math.isfinite(miou) and 0.0 <= miou <= 1.0, f"fused student mIoU {miou}")
+    check(int(conf.sum()) == sum(int((b[1] != 255).sum()) for b in frames),
+          "fused student confusion count is off")
+    check(launches["K6"] == n_abn * FRAMES,
+          f"K6 launched {launches['K6']} times for {n_abn} ABNs × {FRAMES} frames")
+    check(launches["K1"] == FRAMES, f"K1 launched {launches['K1']} times for {FRAMES} frames")
+    check(abs(miou - miou_plain) <= EVAL_MIOU_ATOL, f"fused mIoU {miou} vs unfused {miou_plain}")
+    check(agree >= CLASS_MAP_AGREEMENT_MIN, f"fused vs unfused class maps agree in {agree}")
+    phase(13, "eval_fused", model="student R18 bn_fused full width f32", frames=FRAMES,
+          abn_modules=n_abn, miou=miou, miou_unfused=miou_plain, class_map_agreement=agree,
+          ms_per_frame=1e3 * took / FRAMES, unfused_ms_per_frame=unfused["ms_per_frame"],
+          launches={"K1": launches["K1"], "K6": launches["K6"]}, max_memory_allocated=peak,
+          unfused_max_memory_allocated=unfused["max_memory_allocated"])
+    return {"launches": launches}
+
+
+def phase_conv3x3_probe(device: torch.device) -> dict:
+    """The JAX probe's main on the card: K9 against cuDNN at the stem-like
+    conv, (8,256,256,64) bf16 → Cout 64 and 128, plus one f32 case."""
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(CONV_SHAPE, generator=g, device=device).to(torch.bfloat16)
+    ws = {cout: (0.1 * torch.randn((3, 3, CONV_SHAPE[3], cout), generator=g, device=device))
+          .to(torch.bfloat16) for cout in CONV_COUTS}
+    zero_counts()
+    outs = {cout: conv3x3(x, w) for cout, w in ws.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()["K9"]
+    check(launches == len(CONV_COUTS), f"the probe launched K9 {launches} times")
+
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cases, record = [], {}
+        runs = [(torch.bfloat16, cout, x, ws[cout], outs[cout]) for cout in CONV_COUTS]
+        x32, w32 = x.float(), ws[CONV_COUTS[0]].float()
+        runs.append((torch.float32, CONV_COUTS[0], x32, w32, None))
+        for dtype, cout, xi, wi, out in runs:
+            out = conv3x3(xi, wi) if out is None else out
+            ref = conv3x3_plain(xi, wi)
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            name = f"{tuple(CONV_SHAPE)}->{cout} {str(dtype)[6:]}"
+            check(out.dtype == dtype and out.shape == ref.shape, f"K9 {name}: dtype or shape")
+            check(err <= CONV_REL[dtype] * scale, f"K9 {name}: max |diff| {err} vs max {scale}")
+            ms = cuda_median_ms(lambda: conv3x3(xi, wi), reps=5, trials=3)
+            plain_ms = cuda_median_ms(lambda: conv3x3_plain(xi, wi), reps=5, trials=3)
+            cases.append({"case": name, "rel_err": err / scale, "rel_tol": CONV_REL[dtype],
+                          "ms": ms, "plain_ms": plain_ms})
+            if dtype == torch.bfloat16 and cout == CONV_COUTS[0]:
+                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "launches": launches}
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    phase(14, "conv3x3_probe", cases=cases, launches=launches)
+    return record
 
 
 def main() -> int:
@@ -530,18 +912,24 @@ def main() -> int:
     torch.cuda.set_device(device)
     phase_build()
     k1 = phase_kernel(device)
-    launches = phase_slice(device)
+    eval_stats = phase_slice(device)
     phase_gpu_vs_cpu(device)
     phase_teacher(device)
     ce = phase_ce_kernel(device)
-    train_launches = phase_train(device)
+    train = phase_train(device)
     phase_train_gpu_vs_cpu(device)
+    bn = phase_bn_kernel(device)
+    train_fused = phase_train_fused(device, train)
+    phase_train_gpu_vs_cpu(device, bn_fused=True)
+    eval_fused = phase_eval_fused(device, eval_stats)
+    k9 = phase_conv3x3_probe(device)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
         "source": "structure_knowledge_distillation_tpu_torch/csrc/upsampled_argmax.cu",
         "replaces": "structure_knowledge_distillation_tpu/ops/pallas_eval.py:87",
-        "launches": launches,
+        "path": "eval",
+        "launches": eval_stats["launches"],
         # for an argmax: the largest logit gap between the two classes chosen
         # where kernel and plain version disagree (0.0 where they never do)
         "max_abs_err": k1["max_abs_err"],
@@ -559,8 +947,25 @@ def main() -> int:
                             ("K4", "upsampled_ce_loss_dsn (forward)", 315),
                             ("K5", "upsampled_ce_loss_dsn (backward)", 362)):
         kernels.append({"name": name, "route": "cuda", "source": ce_source,
-                        "replaces": f"{pallas_ce}:{line}", "launches": train_launches[key],
+                        "replaces": f"{pallas_ce}:{line}", "path": "train",
+                        "launches": train["launches"][key],
                         "on_main_path": key in ("K4", "K5"), **ce[key]})
+    # K6–K8: launches of the fused train step's timed steps plus the fused
+    # eval sweep's; errors and times at the shapes phase_bn_kernel names
+    bn_source = "structure_knowledge_distillation_tpu_torch/csrc/fused_bn.cu"
+    pallas_bn = "structure_knowledge_distillation_tpu/ops/pallas_bn.py"
+    for key, name, line in (("K6", "bn_act (fused ABN forward)", 73),
+                            ("K7", "bn_grad_sums (fused ABN backward sums)", 117),
+                            ("K8", "bn_grad_input (fused ABN backward dx)", 163)):
+        train_n, eval_n = train_fused["launches"][key], eval_fused["launches"][key]
+        kernels.append({"name": name, "route": "cuda", "source": bn_source,
+                        "replaces": f"{pallas_bn}:{line}", "path": "fused-ABN train/eval",
+                        "launches": train_n + eval_n, "train_launches": train_n,
+                        "eval_launches": eval_n, **bn[key]})
+    kernels.append({"name": "conv3x3", "route": "cuda",
+                    "source": "structure_knowledge_distillation_tpu_torch/csrc/conv3x3.cu",
+                    "replaces": "scripts/bench_pallas_conv.py:62", "path": "conv3x3 probe",
+                    **k9})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

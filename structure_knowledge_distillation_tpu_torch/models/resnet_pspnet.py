@@ -108,15 +108,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None, dtype: DType = None):
+                 device: Device = None, dtype: DType = None, bn_fused: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device=device, dtype=dtype)
-        self.bn1 = ABN(planes, device=device)
+        self.bn1 = ABN(planes, device=device, fused=bn_fused)
         self.conv2 = _conv(planes, planes, 3, 1, dilation, device=device, dtype=dtype)
-        self.bn2 = ABN(planes, device=device)
+        self.bn2 = ABN(planes, device=device, fused=bn_fused)
         self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, device=device,
                                                dtype=dtype),
-                                         ABN(planes, device=device))
+                                         ABN(planes, device=device, fused=bn_fused))
                            if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,17 +133,17 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None, dtype: DType = None):
+                 device: Device = None, dtype: DType = None, bn_fused: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
-        self.bn1 = ABN(planes, device=device)
+        self.bn1 = ABN(planes, device=device, fused=bn_fused)
         self.conv2 = _conv(planes, planes, 3, stride, dilation, device=device, dtype=dtype)
-        self.bn2 = ABN(planes, device=device)
+        self.bn2 = ABN(planes, device=device, fused=bn_fused)
         self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
-        self.bn3 = ABN(planes * 4, device=device)
+        self.bn3 = ABN(planes * 4, device=device, fused=bn_fused)
         self.downsample = (nn.Sequential(_conv(inplanes, planes * 4, 1, stride, device=device,
                                                dtype=dtype),
-                                         ABN(planes * 4, device=device))
+                                         ABN(planes * 4, device=device, fused=bn_fused))
                            if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,18 +164,19 @@ class PSPModule(nn.Module):
 
     def __init__(self, in_features: int, out_features: int = 512,
                  sizes: Sequence[int] = (1, 2, 3, 6), device: Device = None,
-                 dtype: DType = None, drop_rate: float = DROP_RATE):
+                 dtype: DType = None, drop_rate: float = DROP_RATE, bn_fused: bool = False):
         super().__init__()
         self.stages = nn.ModuleList([
             nn.Sequential(nn.AdaptiveAvgPool2d((s, s)),
                           _conv(in_features, out_features, 1, device=device, dtype=dtype),
-                          ABN(out_features, activation="leaky_relu", device=device))
+                          ABN(out_features, activation="leaky_relu", device=device,
+                              fused=bn_fused))
             for s in sizes
         ])
         self.bottleneck = nn.Sequential(
             _conv(in_features + len(sizes) * out_features, out_features, 3, device=device,
                   dtype=dtype),
-            ABN(out_features, activation="leaky_relu", device=device),
+            ABN(out_features, activation="leaky_relu", device=device, fused=bn_fused),
             Dropout2d(drop_rate),
         )
 
@@ -197,13 +198,15 @@ class ResPSPNet(nn.Module):
     JAX package initialises them) on the CPU and copied to `device`, so a seed
     gives the same weights on every device; biases start at 0. `dtype` is the
     convolutions' compute dtype (None: float32) and `drop_rate` the rate of
-    the PSP and DSN channel dropouts in train mode.
+    the PSP and DSN channel dropouts in train mode. `bn_fused` makes every
+    ABN the fused one (`ABN(fused=True)`, kernels K6–K8), as the JAX model's
+    `bn_fused`; the state-dict keys do not change.
     """
 
     def __init__(self, block: str = BOTTLENECK, layers: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 19, width_mult: float = 1.0, device: Device = None,
                  generator: Optional[torch.Generator] = None, dtype: DType = None,
-                 drop_rate: float = DROP_RATE):
+                 drop_rate: float = DROP_RATE, bn_fused: bool = False):
         super().__init__()
         if block not in (BASIC, BOTTLENECK):
             raise ValueError(f"unknown block {block!r}")
@@ -214,11 +217,11 @@ class ResPSPNet(nn.Module):
         wm = lambda c: max(1, int(round(c * width_mult)))  # noqa: E731
 
         self.conv1 = _conv(3, wm(64), 3, 2, device=device, dtype=dtype)
-        self.bn1 = ABN(wm(64), device=device)
+        self.bn1 = ABN(wm(64), device=device, fused=bn_fused)
         self.conv2 = _conv(wm(64), wm(64), 3, device=device, dtype=dtype)
-        self.bn2 = ABN(wm(64), device=device)
+        self.bn2 = ABN(wm(64), device=device, fused=bn_fused)
         self.conv3 = _conv(wm(64), wm(128), 3, device=device, dtype=dtype)
-        self.bn3 = ABN(wm(128), device=device)
+        self.bn3 = ABN(wm(128), device=device, fused=bn_fused)
 
         inplanes = wm(128)
         plan = [(wm(64), 1, 1), (wm(128), 2, 1), (wm(256), 1, 2), (wm(512), 1, 4)]
@@ -228,18 +231,19 @@ class ResPSPNet(nn.Module):
                 has_down = bi == 0 and (stride != 1 or inplanes != planes * expansion)
                 stage.append(block_cls(inplanes, planes, stride if bi == 0 else 1,
                                        dilation, has_downsample=has_down, device=device,
-                                       dtype=dtype))
+                                       dtype=dtype, bn_fused=bn_fused))
                 inplanes = planes * expansion
             setattr(self, f"layer{li}", nn.Sequential(*stage))
 
         c3 = plan[2][0] * expansion
         c4 = plan[3][0] * expansion
         mid = wm(512) if block == BOTTLENECK else wm(128)
-        self.pspmodule = PSPModule(c4, mid, device=device, dtype=dtype, drop_rate=drop_rate)
+        self.pspmodule = PSPModule(c4, mid, device=device, dtype=dtype, drop_rate=drop_rate,
+                                   bn_fused=bn_fused)
         self.head = _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype)
         self.dsn = nn.Sequential(
             _conv(c3, mid, 3, bias=True, device=device, dtype=dtype),
-            ABN(mid, activation="leaky_relu", device=device),
+            ABN(mid, activation="leaky_relu", device=device, fused=bn_fused),
             Dropout2d(drop_rate),
             _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype),
         )

@@ -4,6 +4,10 @@ from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
     abn_normalize,
     abn_train,
 )
+from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
+    abn_fused_eval,
+    abn_fused_train,
+)
 from structure_knowledge_distillation_tpu_torch.ops.pooling import (
     adaptive_avg_pool_2d,
     max_pool_2d,
@@ -29,6 +33,8 @@ __all__ = [
     "BatchNorm2d",
     "abn_normalize",
     "abn_train",
+    "abn_fused_eval",
+    "abn_fused_train",
     "SNConv",
     "adaptive_avg_pool_2d",
     "max_pool_2d",

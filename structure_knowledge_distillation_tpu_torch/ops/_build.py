@@ -38,9 +38,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_int64 = ctypes.c_int64
 # name -> argtypes of each exported C function (restype is always int: the
 # cudaError_t of the launch)
 _SIGNATURES = {
+    "skd_bn_fwd": [*[_c_void_p] * 4, _c_int, _c_int, _c_int, _c_int, _c_int64, _c_float,
+                   _c_int, _c_int, _c_void_p],
+    "skd_bn_sums": [*[_c_void_p] * 7, _c_int, _c_int, _c_int, _c_int, _c_int64, _c_float,
+                    _c_int, _c_int, _c_void_p],
+    "skd_bn_bwd": [*[_c_void_p] * 8, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int64,
+                   _c_float, _c_int, _c_int, _c_void_p],
+    "skd_conv3x3": [*[_c_void_p] * 3, _c_int, *[_c_int] * 5, _c_void_p],
     "skd_upsampled_argmax": [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
                              _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
                              _c_int, _c_int, _c_int, _c_void_p],

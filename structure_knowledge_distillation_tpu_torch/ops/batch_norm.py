@@ -13,8 +13,12 @@ conventions kept for checkpoint import and numeric parity:
     of differentiable torch ops so that a second derivative exists (the
     discriminator's WGAN-GP differentiates through it).
 
-The JAX package's fused Pallas ABN (kernels K6–K8, `ABN(fused=True)`) is
-not on the train path and is not ported yet (ROADMAP Queue B).
+`ABN(fused=True)` is the JAX package's fused path (`ABN(fused=True)`,
+`ops/pallas_bn.py`): train mode through `fused_bn.abn_fused_train`, whose
+forward and backward are the CUDA kernels K6–K8 on the card, differentiable
+once; eval mode through `fused_bn.abn_fused_eval` (K6), which has no
+gradient. The running update is the same in both paths. `BatchNorm2d` (the
+discriminator's) stays unfused: the WGAN-GP differentiates it twice.
 """
 
 from __future__ import annotations
@@ -147,11 +151,12 @@ class ABN(nn.Module):
 
     Eval mode normalises with the running statistics; train mode with the
     batch statistics, and then moves the running statistics by `momentum`
-    (torch convention: running = (1 − m)·running + m·batch)."""
+    (torch convention: running = (1 − m)·running + m·batch). `fused` takes
+    the fused kernels of `fused_bn` (the JAX `ABN(fused=True)`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, activation: str = "none",
                  slope: float = 0.01, abs_gamma: bool = True, momentum: float = 0.1,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, fused: bool = False):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}")
@@ -161,18 +166,27 @@ class ABN(nn.Module):
         self.slope = slope
         self.abs_gamma = abs_gamma
         self.momentum = momentum
+        self.fused = fused
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # imported here: fused_bn builds on this module's helpers
+        from structure_knowledge_distillation_tpu_torch.ops import fused_bn
+
         if not self.training:
+            if self.fused:
+                return fused_bn.abn_fused_eval(x, self.weight, self.bias, self.running_mean,
+                                               self.running_var, self.eps, self.activation,
+                                               self.slope, self.abs_gamma)
             return abn_normalize(x, self.running_mean, self.running_var, self.weight,
                                  self.bias, eps=self.eps, activation=self.activation,
                                  slope=self.slope, abs_gamma=self.abs_gamma)
-        z, mean, var = abn_train(x, self.weight, self.bias, self.eps, self.activation,
-                                 self.slope, self.abs_gamma)
+        train_fn = fused_bn.abn_fused_train if self.fused else abn_train
+        z, mean, var = train_fn(x, self.weight, self.bias, self.eps, self.activation,
+                                self.slope, self.abs_gamma)
         n = x.numel() // x.shape[1]
         bessel = n / max(n - 1, 1)
         m = self.momentum
@@ -183,7 +197,7 @@ class ABN(nn.Module):
 
     def extra_repr(self) -> str:
         return (f"{self.num_features}, eps={self.eps}, activation={self.activation}, "
-                f"abs_gamma={self.abs_gamma}, momentum={self.momentum}")
+                f"abs_gamma={self.abs_gamma}, momentum={self.momentum}, fused={self.fused}")
 
 
 class BatchNorm2d(ABN):

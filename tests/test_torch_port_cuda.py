@@ -15,12 +15,25 @@ versions: the loss to a relative 1e-5 and the low-res gradients to 1e-4 of
 their largest entry in f32 (f32 sums in another order), one bf16 ulp of the
 largest entry in bf16 (one rounding of the same f32 value, after sums in
 another order); two runs are bit-identical (no atomics, fixed-order sums).
+
+K6–K8 (`fused_bn.bn_act`, `bn_grad_sums`, `bn_grad_input`) against their
+plain versions: the same f32 operations in the same order, so the f32
+forward agrees to 1e-6 relative (ELU: expm1f) and the bf16 forward to one
+bf16 ulp of each value; K7's sums to 1e-5 of their largest entry (f32 sums
+in another order); K8's dx to 1e-5 of max|dx| in f32 and one bf16 ulp of
+max|dx| in bf16 (the plain version divides by the slope as a multiplication
+by its reciprocal); two runs are bit-identical. K9 (`conv3x3`) against
+`conv3x3_plain` (cuDNN, TF32 off): 1e-5 of max|out| in f32, 2⁻⁷ of it in
+bf16 (one rounding of f32 sums taken in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from structure_knowledge_distillation_tpu_torch.ops import ABN, fused_bn
+from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from structure_knowledge_distillation_tpu_torch.ops.fused_bn import abn_fused_train
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
@@ -145,3 +158,198 @@ def test_upsampled_ce_wrapper_checks(cuda_device):
     before = upsampled_ce_loss.launches
     upsampled_ce_loss(x.cpu(), lab.cpu(), (16, 16))  # a CPU tensor takes the plain version
     assert upsampled_ce_loss.launches == before
+
+
+# ------------------------------------------------------------ K6–K8: fused ABN
+BN_SHAPES = [
+    (2, 5, 7, 9),        # ragged planes: 63 elements, every plane starts unaligned
+    (1, 3, 1, 1),        # one element per plane
+    (3, 4, 65, 65),      # H·W = 4225: a masked tail in every plane
+    (2, 8, 32, 32),      # aligned planes
+    (8, 64, 256, 256),   # the stem
+    (8, 512, 65, 65),    # R18 layer4
+]
+PATH_ONLY = {(8, 64, 256, 256), (8, 512, 65, 65)}
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    mag = t.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bn_inputs(shape, dtype, activation, device, seed):
+    """x, and a saved output z of that activation (an ELU's lies above −1),
+    an incoming gradient with a non-zero mean, and per-channel parameters."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = (2.0 * torch.randn(shape, generator=g) + 0.3).to(device, dtype)
+    z = fused_bn.bn_act_plain(x.cpu().float(), torch.ones(c), torch.zeros(c), activation)
+    if activation == "elu":
+        z = z.clamp_min(-0.95)
+    z = z.to(device, dtype)
+    dz = (torch.randn(shape, generator=g) + 0.5).to(device, dtype)
+    prm = [(torch.rand(c, generator=g) + 0.5).to(device) for _ in range(3)]  # gamma, coef, scale
+    beta, shift, edz, eydz = [(0.3 * torch.randn(c, generator=g)).to(device) for _ in range(4)]
+    return x, z, dz, prm[0], beta, prm[1], edz, eydz, prm[2], shift
+
+
+def _bn_cases():
+    for shape in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for act in ("none", "leaky_relu", "elu"):
+                if shape in PATH_ONLY and (act == "elu" or dtype == torch.float32
+                                           and shape[1] == 64):
+                    continue
+                yield pytest.param(shape, dtype, act, id=f"{shape}-{str(dtype)[6:]}-{act}")
+
+
+@pytest.mark.parametrize("shape,dtype,activation", list(_bn_cases()))
+def test_fused_bn_kernels_match_plain(cuda_device, shape, dtype, activation):
+    x, z, dz, gamma, beta, coef, edz, eydz, scale, shift = _bn_inputs(
+        shape, dtype, activation, cuda_device, sum(shape))
+    before = (fused_bn.bn_act.launches, fused_bn.bn_grad_sums.launches,
+              fused_bn.bn_grad_input.launches)
+    outs = [fused_bn.bn_act(x, scale, shift, activation) for _ in range(2)]
+    sums = [fused_bn.bn_grad_sums(z, dz, gamma, beta, activation) for _ in range(2)]
+    dxs = {tr: [fused_bn.bn_grad_input(z, dz, gamma, beta, coef, edz, eydz, activation, 0.01, tr)
+                for _ in range(2)] for tr in (True, False)}
+    assert (fused_bn.bn_act.launches, fused_bn.bn_grad_sums.launches,
+            fused_bn.bn_grad_input.launches) == (before[0] + 2, before[1] + 2, before[2] + 4)
+    ref = fused_bn.bn_act_plain(x, scale, shift, activation)
+    ref_sums = fused_bn.bn_grad_sums_plain(z, dz, gamma, beta, activation)
+    torch.cuda.synchronize()
+
+    assert torch.equal(outs[0], outs[1]) and outs[0].dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(outs[0], ref, rtol=1e-6, atol=1e-30)
+    else:
+        assert ((outs[0].float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
+    for a, b, r in zip(*sums, ref_sums):
+        assert torch.equal(a, b) and a.dtype == torch.float32
+        assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    for training, (d1, d2) in dxs.items():
+        r = fused_bn.bn_grad_input_plain(z, dz, gamma, beta, coef, edz, eydz, activation, 0.01,
+                                         training)
+        assert torch.equal(d1, d2) and d1.dtype == dtype
+        scale_max = r.float().abs().max().item()
+        tol = 1e-5 * scale_max if dtype == torch.float32 else 2.0 ** -7 * scale_max
+        assert (d1.float() - r.float()).abs().max().item() <= tol, training
+
+
+def test_fused_bn_r101_layer4_eval(cuda_device):
+    """K6 at the R101 teacher's layer4 eval shape, bf16, against the plain
+    version; the whole of abn_fused_eval under no_grad."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 2048, 65, 65, generator=g).to(cuda_device, torch.bfloat16)
+    w, b, mean = (torch.randn(2048, generator=g).to(cuda_device) for _ in range(3))
+    var = (torch.rand(2048, generator=g) + 0.5).to(cuda_device)
+    before = fused_bn.bn_act.launches
+    with torch.no_grad():
+        z = fused_bn.abn_fused_eval(x, w, b, mean, var, 1e-5, "none")
+    assert fused_bn.bn_act.launches == before + 1
+    _, scale, shift = fused_bn._scale_shift(mean, var, w, b, 1e-5, True)
+    ref = fused_bn.bn_act_plain(x, scale, shift, "none")
+    assert ((z.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["none", "leaky_relu", "elu"])
+def test_abn_fused_train_cuda_matches_cpu(cuda_device, dtype, activation):
+    """The autograd Function on the card (K6 forward, K7 + K8 backward)
+    against the same Function on the CPU (the plain versions): the batch
+    statistics are torch reductions in another order on each device, so f32
+    agrees to 1e-5 and bf16 to 1e-2 of each tensor's largest entry."""
+    rng = np.random.RandomState(4)
+    shape = (4, 6, 33, 33)
+    x = (np.clip(rng.randn(*shape), -3, 3) * 2 + 0.5).astype(np.float32)
+    w = (np.where(rng.rand(6) < 0.25, -1.0, 1.0) * (0.5 + 0.5 * rng.rand(6))).astype(np.float32)
+    b = (0.3 * rng.randn(6)).astype(np.float32)
+    ct = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    res = {}
+    before = (fused_bn.bn_act.launches, fused_bn.bn_grad_sums.launches,
+              fused_bn.bn_grad_input.launches)
+    for dev in ("cpu", cuda_device):
+        tx = torch.from_numpy(x).to(dev, dtype).requires_grad_()
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        tb = torch.from_numpy(b).to(dev).requires_grad_()
+        z, mean, var = abn_fused_train(tx, tw, tb, 1e-5, activation)
+        (z.float() * ct.to(dev)).sum().backward()
+        res[str(dev)] = [t.detach().float().cpu() for t in (z, mean, var, tx.grad, tw.grad,
+                                                            tb.grad)]
+    assert (fused_bn.bn_act.launches, fused_bn.bn_grad_sums.launches,
+            fused_bn.bn_grad_input.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, ours, ref in zip(("z", "mean", "var", "dx", "dweight", "dbias"),
+                               res[str(cuda_device)], res["cpu"]):
+        assert (ours - ref).abs().max().item() <= rel * ref.abs().max().item(), name
+
+
+def test_abn_module_fused_on_cuda(cuda_device):
+    mod = ABN(16, activation="leaky_relu", fused=True, device=cuda_device)
+    x = torch.randn(2, 16, 9, 11, device=cuda_device)
+    before = fused_bn.bn_act.launches
+    z = mod.train()(x)
+    with torch.no_grad():
+        z_eval = mod.eval()(x)
+    assert fused_bn.bn_act.launches == before + 2
+    assert z.shape == z_eval.shape == x.shape
+    assert torch.isfinite(z).all() and torch.isfinite(z_eval).all()
+    assert not torch.equal(mod.running_mean, torch.zeros_like(mod.running_mean))
+
+
+def test_fused_bn_wrapper_checks(cuda_device):
+    x = torch.randn(2, 3, 4, 5, device=cuda_device)
+    one = torch.ones(3, device=cuda_device)
+    with pytest.raises(TypeError):
+        fused_bn.bn_act(x.half(), one, one)
+    with pytest.raises(ValueError, match="per-channel"):
+        fused_bn.bn_act(x, one.cpu(), one)
+    # a view at an offset that is not 16-byte aligned is copied, not refused
+    view = torch.randn(2 * 3 * 4 * 5 + 1, device=cuda_device)[1:].view(2, 3, 4, 5)
+    assert view.data_ptr() % 16 != 0
+    torch.testing.assert_close(fused_bn.bn_act(view, one, 0 * one),
+                               fused_bn.bn_act_plain(view, one, 0 * one), rtol=0, atol=0)
+    before = fused_bn.bn_act.launches
+    fused_bn.bn_act(x.cpu(), one.cpu(), one.cpu())  # a CPU tensor takes the plain version
+    assert fused_bn.bn_act.launches == before
+
+
+# ------------------------------------------------------------- K9: conv3x3
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 7, 9, 3), 5),         # ragged everywhere
+    ((2, 16, 40, 20), 40),     # Cin not a multiple of 16, Cout not of 32
+    ((1, 1, 1, 16), 32),       # one pixel: all taps but the centre are padding
+    ((2, 32, 33, 64), 128),
+    ((8, 256, 256, 64), 64),   # the probe's shapes
+    ((8, 256, 256, 64), 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_matches_plain(cuda_device, shape, cout, dtype):
+    g = torch.Generator().manual_seed(cout)
+    x = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    w = (0.1 * torch.randn(3, 3, shape[3], cout, generator=g)).to(cuda_device, dtype)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = conv3x3.launches
+        out = conv3x3(x, w)
+        assert conv3x3.launches == before + 1
+        ref = conv3x3_plain(x, w)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    assert out.shape == ref.shape and out.dtype == dtype
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= rel * ref.float().abs().max().item(), err
+
+
+def test_conv3x3_wrapper_checks(cuda_device):
+    x = torch.zeros(1, 4, 4, 3, device=cuda_device)
+    w = torch.zeros(3, 3, 3, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3(x.transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        conv3x3(x, w.cpu())
+    with pytest.raises(TypeError):
+        conv3x3(x.half(), w.half())

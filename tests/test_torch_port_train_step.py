@@ -95,11 +95,15 @@ def _numpy_sd(model):
     return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
-@pytest.fixture(scope="module", params=["wgan-gp", "hinge"])
+@pytest.fixture(scope="module", params=[("wgan-gp", False), ("hinge", False), ("wgan-gp", True)],
+                ids=["wgan-gp", "hinge", "wgan-gp-bn_fused"])
 def run(request):
     """Three steps of both packages from the same start; returns the losses
-    per step and the state dicts at the start, after step 1 and after step 3."""
-    adv_type = request.param
+    per step and the state dicts at the start, after step 1 and after step 3.
+    With `bn_fused`, teacher and student take the fused ABN on both sides
+    (the JAX Pallas kernels K6–K8 in interpret mode, the port's plain
+    versions of its kernels on the CPU)."""
+    adv_type, bn_fused = request.param
     rng = np.random.RandomState(42)
     images_k = rng.randn(N_STEPS, 2, 256, 256, 3).astype(np.float32)
     # the two images of a batch differ in contrast and brightness, as real
@@ -112,9 +116,9 @@ def run(request):
 
     jcfg = JaxTrainConfig(**_cfg_kwargs(adv_type), fused_ce="true")
     teacher = JaxResPSPNet(block="bottleneck", layers=LAYERS, num_classes=CLASSES,
-                           drop_rate=0.0, width_mult=WIDTH)
+                           drop_rate=0.0, width_mult=WIDTH, bn_fused=bn_fused)
     student = JaxResPSPNet(block="basic", layers=LAYERS, num_classes=CLASSES,
-                           drop_rate=0.0, width_mult=WIDTH)
+                           drop_rate=0.0, width_mult=WIDTH, bn_fused=bn_fused)
     disc = JaxDiscriminator(preprocess_mode=1, image_size=33, conv_dim=16)
     key = jax.random.PRNGKey(0)
     x0 = jnp.asarray(images_k[0, :1])
@@ -142,8 +146,10 @@ def run(request):
 
     # --- the port, from the same weights
     cfg = TrainConfig(**_cfg_kwargs(adv_type), device="cpu")
-    t_model = ResPSPNet("bottleneck", LAYERS, CLASSES, width_mult=WIDTH, drop_rate=0.0)
-    s_model = ResPSPNet("basic", LAYERS, CLASSES, width_mult=WIDTH, drop_rate=0.0)
+    t_model = ResPSPNet("bottleneck", LAYERS, CLASSES, width_mult=WIDTH, drop_rate=0.0,
+                        bn_fused=bn_fused)
+    s_model = ResPSPNet("basic", LAYERS, CLASSES, width_mult=WIDTH, drop_rate=0.0,
+                        bn_fused=bn_fused)
     d_model = Discriminator(CLASSES, preprocess_mode=1, image_size=33, conv_dim=16)
     for model, sd in ((t_model, tckpt.state_dict_from_jax(t_vars)),
                       (s_model, jax_sds[0][0]), (d_model, jax_sds[0][1])):

@@ -53,10 +53,23 @@ any failure ends the run with a non-zero exit:
      K6 launched once per ABN per frame, mIoU within 1e-3 of the unfused
      model's on the same weights and frames, class maps agree in ≥ 0.999;
  14. conv3x3_probe: the JAX probe's main (scripts/bench_pallas_conv.py) on
-     the card: K9 at (8,256,256,64) bf16 → Cout 64 and 128 within 2⁻⁷ of
-     max|out| of the plain version (cuDNN), f32 with TF32 off within 1e-5.
+     the card. K9 has two CUDA kernels, chosen by dtype and channel counts:
+     at (8,256,256,64) bf16 → Cout 64 and 128 the tensor-core kernel
+     (csrc/conv3x3_wgmma.cu, counted as K9-wgmma) must run, within 2⁻⁷ of
+     max|out| of the plain version (cuDNN, TF32 off), bit-identical over two
+     runs, and at least 10× faster than the direct kernel (csrc/conv3x3.cu,
+     timed at the same shape through its C entry point); the f32 case (within
+     1e-5) and a ragged bf16 case must run the direct kernel. Each case prints
+     its route, ms, plain_ms, library_ms (one F.conv2d), bound_ms, what sets
+     the bound and the share of it reached; the wgmma kernel's ptxas report
+     must show no spill.
 
-The last two lines are the kernels' JSON record and the contract line
+Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
+could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
+operations over the peak of their type, whichever is longer, counted from
+this run's inputs), `bound_by`, and `library_ms`, the time of one PyTorch
+call that computes the same function where one exists (else null). The
+last two lines are the kernels' JSON record and the contract line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -71,6 +84,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import SyntheticSegDataset, batch_iterator
@@ -89,7 +103,7 @@ from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
     abn_normalize,
     abn_train,
 )
-from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
     abn_fused_eval,
     abn_fused_train,
@@ -158,7 +172,13 @@ BN_EPS = 1e-5
 EVAL_MIOU_ATOL = 1e-3
 # K9 vs cuDNN (TF32 off): f32 sums in another order, then one bf16 rounding
 CONV_SHAPE, CONV_COUTS = (8, 256, 256, 64), (64, 128)
+CONV_RAGGED = ((2, 16, 40, 20), 40)  # bf16, but neither Cin nor Cout fits the wgmma kernel
 CONV_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+CONV_SPEEDUP_MIN = 10.0  # the wgmma kernel against the direct one, same shape
+# H100 SXM peaks (NVIDIA's data sheet, dense, at a 700 W limit): device
+# memory, bf16 tensor cores, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -168,6 +188,15 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False), flush=True)
+
+
+def card_bound(nbytes: float, flops: float, peak: str = "f32") -> dict:
+    """The least time the card could take for a call that must move
+    `nbytes` (each input read once, each output written once) and do `flops`
+    operations at the peak rate of type `peak`: the longer of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def cuda_median_ms(fn, reps: int = 20, trials: int = 5) -> float:
@@ -197,7 +226,7 @@ COUNTERS = {"K1": (upsampled_argmax, "launches"), "K2": (upsampled_ce_loss, "lau
             "K3": (upsampled_ce_loss, "bwd_launches"), "K4": (upsampled_ce_loss_dsn, "launches"),
             "K5": (upsampled_ce_loss_dsn, "bwd_launches"), "K6": (bn_act, "launches"),
             "K7": (bn_grad_sums, "launches"), "K8": (bn_grad_input, "launches"),
-            "K9": (conv3x3, "launches")}
+            "K9": (conv3x3, "launches"), "K9-wgmma": (conv3x3, "wgmma_launches")}
 
 
 def zero_counts() -> None:
@@ -254,13 +283,30 @@ def phase_device() -> None:
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
 
+def ptxas_report() -> list:
+    """Each compiled kernel's registers and spills from nvcc's ptxas output
+    (`_build.build_log`): [{"function", "registers", "spill_stores",
+    "spill_loads"}] in build order."""
+    report = []
+    for ln in _build.build_log().splitlines():
+        if "Compiling entry function" in ln:
+            report.append({"function": ln.split("'")[1]})
+        elif report and "bytes spill stores" in ln:
+            words = ln.replace(",", "").split()
+            report[-1]["spill_stores"] = int(words[words.index("spill") - 2])
+            report[-1]["spill_loads"] = int(words[-4])
+        elif report and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            report[-1]["registers"] = int(words[words.index("registers") - 1])
+    return report
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_kernels()
     took = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln or "built in" in ln]
-    phase(2, "build", seconds=round(took, 3), nvcc=ptxas)
+    built = [ln.strip() for ln in _build.build_log().splitlines() if "built in" in ln]
+    phase(2, "build", seconds=round(took, 3), nvcc=built, ptxas=ptxas_report())
 
 
 def phase_kernel(device: torch.device) -> dict:
@@ -294,7 +340,14 @@ def phase_kernel(device: torch.device) -> dict:
                 cases.append({"case": name, "mismatch": share, "tie_gap": gap,
                               "ms": ms, "plain_ms": plain_ms})
                 if headline is None:  # (1,19,129,257)->(1024,2048) f32: the eval path's
-                    headline = {"ms": ms, "plain_ms": plain_ms}
+                    # separable resize (a lerp of 3 operations per sample,
+                    # along H on the input's columns, then along W) and a
+                    # compare per class and output pixel
+                    n, c, h_in, w_in = shape
+                    flops = n * c * out[0] * (3 * w_in + 3 * out[1] + out[1])
+                    # no one PyTorch call upsamples and takes the argmax
+                    headline = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                                **card_bound(x.nbytes + k.nbytes, flops)}
     phase(3, "kernel", cases=cases)
     return {"max_abs_err": max_gap, **headline}
 
@@ -464,10 +517,26 @@ def phase_ce_kernel(device: torch.device) -> dict:
                               "plain_bwd_ms": plain_bwd_ms, "fwd_bwd_ms": fb_ms,
                               "plain_fwd_bwd_ms": plain_fb_ms})
                 if dtype == torch.bfloat16:  # the train step's logits are bf16
+                    # per head: the separable resize of every class (3 per
+                    # sample, along H, then along W); per labelled pixel and
+                    # class, the log-softmax's max, exp and sum (3); the
+                    # backward adds softmax − one-hot (2) and the transposed
+                    # resize of the gradient. No one PyTorch call upsamples
+                    # and takes the CE (library_ms null).
+                    n, c, h_in, w_in = TRAIN_SHAPE
+                    h_out, w_out = TRAIN_CROP
+                    valid = int((labels != 255).sum())
+                    resize = 3 * n * c * h_out * (w_in + w_out)
+                    fwd_flops = heads * (resize + 3 * c * valid)
+                    bwd_flops = heads * (2 * resize + 5 * c * valid)
+                    logits_bytes = sum(t.nbytes for t in xs)
+                    label_bytes = labels.numel() * 4  # the kernels read int32 labels
                     record[k_fwd] = {"max_abs_err": loss_err, "ms": fwd_ms,
-                                     "plain_ms": plain_fwd_ms}
+                                     "plain_ms": plain_fwd_ms, "library_ms": None,
+                                     **card_bound(logits_bytes + labels.nbytes + 4, fwd_flops)}
                     record[k_bwd] = {"max_abs_err": grad_err, "ms": bwd_ms,
-                                     "plain_ms": plain_bwd_ms}
+                                     "plain_ms": plain_bwd_ms, "library_ms": None,
+                                     **card_bound(2 * logits_bytes + label_bytes, bwd_flops)}
     phase(7, "ce_kernel", shape=list(TRAIN_SHAPE), out=list(TRAIN_CROP), cases=cases)
     return record
 
@@ -787,14 +856,31 @@ def phase_bn_kernel(device: torch.device) -> dict:
                 case = {"case": name, "max_abs_err": errs, "bit_identical": True, "ms": ms}
                 if dtype == torch.bfloat16 and act == "none":
                     case["unfused_ms"] = _unfused_abn_ms(t, where)
+                    numel, c = t["x"].numel(), shape[1]
                     if where == "R101 layer4 eval":
+                        # x·scale + shift: one FMA per element. One PyTorch
+                        # call computes it: an eval-mode F.batch_norm with
+                        # mean 0, var 1 − eps, weight scale and bias shift
+                        zero = torch.zeros_like(sc)
+                        library_ms = cuda_median_ms(lambda: F.batch_norm(
+                            t["x"], zero, 1.0 - BN_EPS + zero, sc, sh, False, 0.0, BN_EPS))
                         record["K6"] = {"max_abs_err": errs["K6 eval"], "ms": ms["K6"],
-                                        "plain_ms": ms["K6 plain"]}
+                                        "plain_ms": ms["K6 plain"], "library_ms": library_ms,
+                                        **card_bound(2 * t["x"].nbytes + 8 * c, 2 * numel)}
                     if where == "stem":
+                        # K7: ŷ from z (2), dz·ŷ (1), two sums (2) per element;
+                        # K8: ŷ (2) and dx from dz, ŷ and four per-channel
+                        # values (6). Torch's batch-norm backward takes x and
+                        # the batch statistics, not the saved output z: no
+                        # one PyTorch call computes either (library_ms null).
+                        zd = t["z"].nbytes + t["dz"].nbytes
                         record["K7"] = {"max_abs_err": errs["K7"], "ms": ms["K7"],
-                                        "plain_ms": ms["K7 plain"]}
+                                        "plain_ms": ms["K7 plain"], "library_ms": None,
+                                        **card_bound(zd + 16 * c, 5 * numel)}
                         record["K8"] = {"max_abs_err": errs["K8 training=True"],
-                                        "ms": ms["K8"], "plain_ms": ms["K8 plain"]}
+                                        "ms": ms["K8"], "plain_ms": ms["K8 plain"],
+                                        "library_ms": None,
+                                        **card_bound(zd + t["dz"].nbytes + 20 * c, 8 * numel)}
                 cases.append(case)
                 del t
     phase(10, "bn_kernel", cases=cases)
@@ -865,44 +951,110 @@ def phase_eval_fused(device: torch.device, unfused: dict) -> dict:
     return {"launches": launches}
 
 
+def _conv_bound(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """K9's bound: 2·9·Cin·Cout operations per output pixel on the tensor
+    cores (bf16) or the CUDA cores (f32, TF32 off); x and w read once, the
+    output written once in x's dtype."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    flops = 2 * 9 * n * h * wd * cin * cout
+    nbytes = x.nbytes + w.nbytes + n * h * wd * cout * x.element_size()
+    return card_bound(nbytes, flops, "bf16 tensor" if x.dtype == torch.bfloat16 else "f32")
+
+
+def _direct_conv_ms(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """The direct kernel (csrc/conv3x3.cu) at a shape that the wrapper routes
+    to the wgmma kernel, through its C entry point (so no count moves):
+    (device ms, its output)."""
+    lib = _build.load_kernels()
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run():
+        err = lib.skd_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), 1, n, h, wd, cin, cout,
+                              stream)
+        check(err == 0, f"direct conv3x3 kernel launch failed: cudaError {err}")
+
+    return cuda_median_ms(run, reps=3, trials=3), out
+
+
 def phase_conv3x3_probe(device: torch.device) -> dict:
     """The JAX probe's main on the card: K9 against cuDNN at the stem-like
-    conv, (8,256,256,64) bf16 → Cout 64 and 128, plus one f32 case."""
+    conv, (8,256,256,64) bf16 → Cout 64 and 128 (the wgmma kernel), the f32
+    case and a ragged bf16 case (the direct kernel). Returns the JSON fields
+    of the two kernels."""
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(CONV_SHAPE, generator=g, device=device).to(torch.bfloat16)
-    ws = {cout: (0.1 * torch.randn((3, 3, CONV_SHAPE[3], cout), generator=g, device=device))
-          .to(torch.bfloat16) for cout in CONV_COUTS}
+    runs = []
+    for cout in CONV_COUTS:
+        w = (0.1 * torch.randn((3, 3, CONV_SHAPE[3], cout), generator=g, device=device))
+        runs.append(("wgmma", x, w.to(torch.bfloat16)))
+    runs.append(("direct", x.float(), runs[0][2].float()))
+    shape, cout = CONV_RAGGED
+    runs.append(("direct", torch.randn(shape, generator=g, device=device).to(torch.bfloat16),
+                 (0.1 * torch.randn((3, 3, shape[3], cout), generator=g, device=device))
+                 .to(torch.bfloat16)))
     zero_counts()
-    outs = {cout: conv3x3(x, w) for cout, w in ws.items()}
+    outs = [conv3x3(xi, wi) for _, xi, wi in runs]
     torch.cuda.synchronize()
-    launches = read_counts()["K9"]
-    check(launches == len(CONV_COUTS), f"the probe launched K9 {launches} times")
+    launches = read_counts()
+    check(launches["K9"] == len(runs) and launches["K9-wgmma"] == len(CONV_COUTS),
+          f"the probe launched K9 {launches['K9']} times, {launches['K9-wgmma']} of them "
+          f"the wgmma kernel")
+    # one instantiation per Cout and weight placement (resident or streamed)
+    spills = [k for k in ptxas_report() if "conv3x3_wgmma" in k["function"]]
+    check(len(spills) == 2 * len(CONV_COUTS) and
+          all(k["spill_stores"] == k["spill_loads"] == 0 for k in spills),
+          f"the wgmma kernel's ptxas report: {spills}")
 
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         cases, record = [], {}
-        runs = [(torch.bfloat16, cout, x, ws[cout], outs[cout]) for cout in CONV_COUTS]
-        x32, w32 = x.float(), ws[CONV_COUTS[0]].float()
-        runs.append((torch.float32, CONV_COUTS[0], x32, w32, None))
-        for dtype, cout, xi, wi, out in runs:
-            out = conv3x3(xi, wi) if out is None else out
+        for (want, xi, wi), out in zip(runs, outs):
+            dtype, cout = xi.dtype, wi.shape[3]
+            route = _route(dtype, xi.shape[3], cout)
+            name = f"{tuple(xi.shape)}->{cout} {str(dtype)[6:]}"
+            check(route == want, f"K9 {name} took the {route} route, not {want}")
             ref = conv3x3_plain(xi, wi)
             err = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            name = f"{tuple(CONV_SHAPE)}->{cout} {str(dtype)[6:]}"
             check(out.dtype == dtype and out.shape == ref.shape, f"K9 {name}: dtype or shape")
             check(err <= CONV_REL[dtype] * scale, f"K9 {name}: max |diff| {err} vs max {scale}")
+            check(torch.equal(out, conv3x3(xi, wi)), f"K9 {name}: two runs differ")
+            xv, wv = xi.permute(0, 3, 1, 2), wi.permute(3, 2, 0, 1)
             ms = cuda_median_ms(lambda: conv3x3(xi, wi), reps=5, trials=3)
-            plain_ms = cuda_median_ms(lambda: conv3x3_plain(xi, wi), reps=5, trials=3)
-            cases.append({"case": name, "rel_err": err / scale, "rel_tol": CONV_REL[dtype],
-                          "ms": ms, "plain_ms": plain_ms})
-            if dtype == torch.bfloat16 and cout == CONV_COUTS[0]:
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "launches": launches}
+            case = {"case": name, "route": route, "rel_err": err / scale,
+                    "rel_tol": CONV_REL[dtype], "max_abs_err": err, "ms": ms,
+                    "plain_ms": cuda_median_ms(lambda: conv3x3_plain(xi, wi), reps=5, trials=3),
+                    "library_ms": cuda_median_ms(lambda: F.conv2d(xv, wv, padding=1),
+                                                 reps=5, trials=3),
+                    **_conv_bound(xi, wi)}
+            case["bound_share"] = case["bound_ms"] / ms
+            if route == "wgmma":
+                direct_ms, direct_out = _direct_conv_ms(xi, wi)
+                direct_err = (direct_out.float() - ref.float()).abs().max().item()
+                check(direct_err <= CONV_REL[dtype] * scale,
+                      f"K9 {name} direct kernel: max |diff| {direct_err} vs max {scale}")
+                case.update(direct_ms=direct_ms, speedup_vs_direct=direct_ms / ms)
+                check(direct_ms >= CONV_SPEEDUP_MIN * ms,
+                      f"K9 {name}: wgmma {ms} ms is not {CONV_SPEEDUP_MIN}x faster than the "
+                      f"direct kernel's {direct_ms} ms")
+            cases.append(case)
+            # the JSON entry of each kernel: the first probe-shape case it ran
+            if route not in record:
+                record[route] = {k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                      "library_ms", "bound_ms", "bound_by")}
+                record[route]["case"] = name
     finally:
         torch.backends.cudnn.allow_tf32 = flag
-    phase(14, "conv3x3_probe", cases=cases, launches=launches)
+    record["wgmma"]["launches"] = launches["K9-wgmma"]
+    record["direct"]["launches"] = launches["K9"] - launches["K9-wgmma"]
+    record["direct"]["bf16_probe_ms"] = cases[0]["direct_ms"]
+    phase(14, "conv3x3_probe", cases=cases,
+          launches={"K9": launches["K9"], "K9-wgmma": launches["K9-wgmma"]}, ptxas=spills)
     return record
 
 
@@ -930,11 +1082,10 @@ def main() -> int:
         "replaces": "structure_knowledge_distillation_tpu/ops/pallas_eval.py:87",
         "path": "eval",
         "launches": eval_stats["launches"],
-        # for an argmax: the largest logit gap between the two classes chosen
-        # where kernel and plain version disagree (0.0 where they never do)
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        # max_abs_err, for an argmax: the largest logit gap between the two
+        # classes chosen where kernel and plain version disagree (0.0 where
+        # they never do)
+        **k1,
     }]
     ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
     pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"
@@ -962,10 +1113,15 @@ def main() -> int:
                         "replaces": f"{pallas_bn}:{line}", "path": "fused-ABN train/eval",
                         "launches": train_n + eval_n, "train_launches": train_n,
                         "eval_launches": eval_n, **bn[key]})
-    kernels.append({"name": "conv3x3", "route": "cuda",
-                    "source": "structure_knowledge_distillation_tpu_torch/csrc/conv3x3.cu",
-                    "replaces": "scripts/bench_pallas_conv.py:62", "path": "conv3x3 probe",
-                    **k9})
+    # K9: two kernels for one TPU kernel, chosen by dtype and channel counts;
+    # each entry holds the first probe case it ran (wgmma: (8,256,256,64)->64
+    # bf16; direct: the same conv in f32, and its bf16 time at that shape)
+    csrc = "structure_knowledge_distillation_tpu_torch/csrc"
+    for route, name, source in (("direct", "conv3x3", "conv3x3.cu"),
+                                ("wgmma", "conv3x3 (wgmma)", "conv3x3_wgmma.cu")):
+        kernels.append({"name": name, "route": "cuda", "source": f"{csrc}/{source}",
+                        "replaces": "scripts/bench_pallas_conv.py:62", "path": "conv3x3 probe",
+                        **k9[route]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "skd_bn_bwd": [*[_c_void_p] * 8, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int64,
                    _c_float, _c_int, _c_int, _c_void_p],
     "skd_conv3x3": [*[_c_void_p] * 3, _c_int, *[_c_int] * 5, _c_void_p],
+    "skd_conv3x3_wgmma": [*[_c_void_p] * 3, *[_c_int] * 5, _c_void_p],
     "skd_upsampled_argmax": [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
                              _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
                              _c_int, _c_int, _c_int, _c_void_p],

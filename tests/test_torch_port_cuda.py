@@ -24,7 +24,10 @@ in another order); K8's dx to 1e-5 of max|dx| in f32 and one bf16 ulp of
 max|dx| in bf16 (the plain version divides by the slope as a multiplication
 by its reciprocal); two runs are bit-identical. K9 (`conv3x3`) against
 `conv3x3_plain` (cuDNN, TF32 off): 1e-5 of max|out| in f32, 2⁻⁷ of it in
-bf16 (one rounding of f32 sums taken in another order).
+bf16 (one rounding of f32 sums taken in another order). bf16 with Cin a
+multiple of 64 and Cout 64 or 128 takes the tensor-core kernel
+(`csrc/conv3x3_wgmma.cu`), every other case the direct one
+(`csrc/conv3x3.cu`); `pytest -k conv3x3` runs only the K9 tests.
 """
 
 import numpy as np
@@ -32,7 +35,7 @@ import pytest
 import torch
 
 from structure_knowledge_distillation_tpu_torch.ops import ABN, fused_bn
-from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import abn_fused_train
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
@@ -331,9 +334,12 @@ def test_conv3x3_matches_plain(cuda_device, shape, cout, dtype):
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        before = conv3x3.launches
+        before, before_wgmma = conv3x3.launches, conv3x3.wgmma_launches
         out = conv3x3(x, w)
         assert conv3x3.launches == before + 1
+        # the f32 and ragged cases take the direct kernel: no wgmma launch
+        wgmma = _route(dtype, shape[3], cout) == "wgmma"
+        assert conv3x3.wgmma_launches == before_wgmma + wgmma
         ref = conv3x3_plain(x, w)
         torch.cuda.synchronize()
     finally:
@@ -342,6 +348,37 @@ def test_conv3x3_matches_plain(cuda_device, shape, cout, dtype):
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= rel * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 1, 1, 64), 64),        # one pixel: 8 of the 9 taps read only padding
+    ((1, 5, 100, 64), 64),      # W < 128: one ragged tile per row
+    ((2, 7, 257, 128), 128),    # W = 2·128 + 1: a last tile of one pixel
+    ((3, 16, 128, 192), 64),    # three Cin chunks per tap; weights streamed, not resident
+    ((2, 9, 130, 128), 128),    # streamed weights at Cout 128
+    ((8, 256, 256, 64), 64),    # the probe's shapes
+    ((8, 256, 256, 64), 128),
+])
+def test_conv3x3_wgmma_matches_plain(cuda_device, shape, cout):
+    g = torch.Generator().manual_seed(shape[2] + cout)
+    x = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    w = (0.1 * torch.randn(3, 3, shape[3], cout, generator=g)).to(cuda_device, torch.bfloat16)
+    assert _route(x.dtype, shape[3], cout) == "wgmma"
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = conv3x3.wgmma_launches
+        out = conv3x3(x, w)
+        assert conv3x3.wgmma_launches == before + 1
+        again = conv3x3(x, w)
+        ref = conv3x3_plain(x, w)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)  # fixed-order f32 sums: bit-identical runs
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item(), err
 
 
 def test_conv3x3_wrapper_checks(cuda_device):
@@ -353,3 +390,7 @@ def test_conv3x3_wrapper_checks(cuda_device):
         conv3x3(x, w.cpu())
     with pytest.raises(TypeError):
         conv3x3(x.half(), w.half())
+    xb = torch.zeros(1, 4, 4, 64 + 8, device=cuda_device, dtype=torch.bfloat16)
+    wb = torch.zeros(3, 3, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):  # a view 2 bytes past an aligned base
+        conv3x3(xb.view(-1)[1:1 + 16 * 64].view(1, 4, 4, 64), wb)

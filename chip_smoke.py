@@ -29,6 +29,8 @@ any failure ends the run with a non-zero exit:
      labels: loss within a relative 1e-5, low-res gradients within 1e-4 of
      their largest entry (f32) or one bf16 ulp of it (bf16), two runs
      bit-identical; warm median device times, forward and forward+backward;
+     K5 (bf16, 5 % ignored) at least 4× faster than its plain version, and
+     no spill in the ptxas report of the backward's two kernels;
   8. train: KDTrainer.fit at the reference recipe (batch 8, 512² crops,
      bf16 convs, Pi+Pa+Ho, wgan-gp) with a seeded random full-width R101
      teacher and seeded R18 student and discriminator: 2 warm-up steps, then
@@ -152,6 +154,7 @@ CLASS_MAP_AGREEMENT_MIN = 0.999
 # gradient is one rounding of nearly the same f32 value
 CE_LOSS_RTOL = 1e-5
 CE_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+CE_BWD_SPEEDUP_MIN = 4.0  # K5 against its plain version, bf16, 5 % ignored
 TRAIN_SHAPE = (8, NUM_CLASSES, 65, 65)
 TRAIN_CROP = (512, 512)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
@@ -465,6 +468,11 @@ def _ce_case(device, heads, dtype, ignored, seed):
 
 def phase_ce_kernel(device: torch.device) -> dict:
     """K2–K5 against the plain versions; returns the JSON fields per kernel."""
+    # pass 1 and pass 2 of the backward, one instantiation per dtype each
+    bwd_ptxas = [k for k in ptxas_report() if "ce_bwd" in k["function"]]
+    check(len(bwd_ptxas) == 4 and
+          all(k["spill_stores"] == k["spill_loads"] == 0 for k in bwd_ptxas),
+          f"the CE backward kernels' ptxas report: {bwd_ptxas}")
     cases, record = [], {}
     for heads, fn, plain, k_fwd, k_bwd in ((2, upsampled_ce_loss_dsn, upsampled_ce_loss_dsn_plain,
                                             "K4", "K5"),
@@ -510,11 +518,16 @@ def phase_ce_kernel(device: torch.device) -> dict:
                 bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(loss, xs, retain_graph=True))
                 plain_bwd_ms = cuda_median_ms(
                     lambda: torch.autograd.grad(ref, xs, retain_graph=True))
+                if heads == 2 and dtype == torch.bfloat16:
+                    check(plain_bwd_ms >= CE_BWD_SPEEDUP_MIN * bwd_ms,
+                          f"K5 {name}: {bwd_ms} ms is not {CE_BWD_SPEEDUP_MIN}x faster than "
+                          f"the plain version's {plain_bwd_ms} ms")
                 cases.append({"case": name, "loss": loss.item(), "loss_abs_err": loss_err,
                               "grad_max_abs_err": grad_err, "grad_max": grad_max,
                               "bit_identical": True, "fwd_ms": fwd_ms,
                               "plain_fwd_ms": plain_fwd_ms, "bwd_ms": bwd_ms,
-                              "plain_bwd_ms": plain_bwd_ms, "fwd_bwd_ms": fb_ms,
+                              "plain_bwd_ms": plain_bwd_ms,
+                              "bwd_speedup_vs_plain": plain_bwd_ms / bwd_ms, "fwd_bwd_ms": fb_ms,
                               "plain_fwd_bwd_ms": plain_fb_ms})
                 if dtype == torch.bfloat16:  # the train step's logits are bf16
                     # per head: the separable resize of every class (3 per
@@ -537,7 +550,8 @@ def phase_ce_kernel(device: torch.device) -> dict:
                     record[k_bwd] = {"max_abs_err": grad_err, "ms": bwd_ms,
                                      "plain_ms": plain_bwd_ms, "library_ms": None,
                                      **card_bound(2 * logits_bytes + label_bytes, bwd_flops)}
-    phase(7, "ce_kernel", shape=list(TRAIN_SHAPE), out=list(TRAIN_CROP), cases=cases)
+    phase(7, "ce_kernel", shape=list(TRAIN_SHAPE), out=list(TRAIN_CROP), cases=cases,
+          bwd_ptxas=bwd_ptxas)
     return record
 
 

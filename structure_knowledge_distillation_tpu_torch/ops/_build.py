@@ -55,8 +55,8 @@ _SIGNATURES = {
                              _c_int, _c_int, _c_int, _c_void_p],
     "skd_upsampled_ce_fwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 10,
                              *[_c_int] * 7, _c_float, _c_void_p],
-    "skd_upsampled_ce_bwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 14,
-                             *[_c_int] * 7, _c_float, _c_int, _c_int, _c_void_p],
+    "skd_upsampled_ce_bwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 13,
+                             *[_c_int] * 7, _c_float, *[_c_int] * 3, _c_void_p],
 }
 
 

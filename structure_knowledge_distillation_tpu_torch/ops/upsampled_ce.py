@@ -38,12 +38,15 @@ __all__ = [
     "upsampled_ce_loss_dsn",
     "upsampled_ce_loss_plain",
     "upsampled_ce_loss_dsn_plain",
-    "tap_ranges",
+    "tap_intervals",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_THREADS = 256  # csrc/upsampled_ce.cu kFwdThreads: one partial per block
-_SMEM_BYTES = 48 * 1024
+_BWD_PX = 128  # pixels per chunk of the backward's softmax buffer: with 2 heads,
+# one thread per (pixel, head) of csrc/upsampled_ce.cu's 256 (kBwdThreads)
+_BWD_SMEM_SOFT = 64 * 1024  # keeps several backward blocks on an SM
+_SMEM_MAX = 227 * 1024  # the H100's dynamic shared memory per block
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
@@ -79,26 +82,64 @@ def upsampled_ce_loss_dsn_plain(logits: torch.Tensor, aux_logits: torch.Tensor,
             + dsn_weight * upsampled_ce_loss_plain(aux_logits, labels, out_size, ignore_index))
 
 
-def tap_ranges(n_in: int, n_out: int) -> np.ndarray:
-    """(2, n_in) int32 [start, end) of the output samples whose taps touch
-    each input sample: the rows of the transposed interpolation that the
-    backward gathers over. The samples are contiguous because the taps are
-    monotone in the output index (checked); an input sample that no tap
-    touches gets the empty range [0, 0)."""
-    idx, wt = tap_tables(n_in, n_out)
-    out = np.zeros((2, n_in), np.int64)
-    for j in range(n_in):
-        hits = np.nonzero((idx[0] == j) | ((idx[1] == j) & (wt[1] != 0)))[0]
-        if hits.size:
-            if hits[-1] - hits[0] + 1 != hits.size:
-                raise AssertionError(f"taps of input sample {j} are not contiguous")
-            out[:, j] = hits[0], hits[-1] + 1
-    return out.astype(np.int32)
+def tap_intervals(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in + 1,) int32 offsets: the output samples whose first tap is input
+    sample j are [start[j], start[j+1]), the interval (a row) or cell (a
+    column) that one block of the backward walks. The first tap is monotone
+    in the output index and the second is the first or the one after it
+    (both checked), so each output sample of interval j reads only inputs j
+    and j + 1, and its weight on j + 1 is 0 where it has no second tap."""
+    idx, _ = tap_tables(n_in, n_out)
+    lo, hi = idx.astype(np.int64)
+    if (np.diff(lo) < 0).any() or not ((hi == lo) | (hi == lo + 1)).all():
+        raise AssertionError(f"taps of {n_in} -> {n_out} are not monotone adjacent pairs")
+    return np.searchsorted(lo, np.arange(n_in + 1), side="left").astype(np.int32)
 
 
 @functools.lru_cache(maxsize=32)
-def _device_ranges(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(tap_ranges(n_in, n_out)).to(device)
+def _device_intervals(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(tap_intervals(n_in, n_out)).to(device)
+
+
+def _bwd_smem_bytes(c_all: int, w_in: int, seg: int, px: int) -> int:
+    """The backward pass-1 kernel's dynamic shared memory, 4-byte words: the
+    staged logits and their H interpolation (3·c_all·(seg+1)), the softmax of
+    a chunk of px pixels (row stride c_all | 1), the 4 corner sums per cell
+    and channel, 5 words per pixel (label, 2 column weights, scale/Σexp of
+    each head, padded to an even count) and each column's pixel range, 2
+    words (csrc/upsampled_ce.cu bwd_smem_bytes)."""
+    nj, ncols = min(seg, w_in), min(seg + 1, w_in)
+    return 4 * (3 * c_all * ncols + px * (c_all | 1) + 4 * nj * c_all + 5 * px + (px & 1)
+                + 2 * seg)
+
+
+@functools.lru_cache(maxsize=32)
+def _bwd_tiling(c_all: int, w_in: int, w_out: int) -> tuple[int, int, int]:
+    """(seg, px, smem bytes) of the backward's pass 1: low-res columns per
+    block, halved while the block's shared memory exceeds _BWD_SMEM_SOFT
+    (occupancy), then narrowed until every segment's pixels fit one chunk of
+    _BWD_PX; the chunk is halved while the block exceeds the card's
+    _SMEM_MAX. Raises ValueError where even one column and one pixel do not
+    fit."""
+    start = tap_intervals(w_in, w_out)
+    px = _BWD_PX
+
+    def widest(seg: int) -> int:
+        lo = np.arange(0, w_in, seg)
+        return int((start[np.minimum(lo + seg, w_in)] - start[lo]).max())
+
+    seg = w_in
+    while seg > 1 and _bwd_smem_bytes(c_all, w_in, seg, px) > _BWD_SMEM_SOFT:
+        seg = (seg + 1) // 2
+    while seg > 1 and widest(seg) > px:
+        seg -= 1
+    while px > 1 and _bwd_smem_bytes(c_all, w_in, seg, px) > _SMEM_MAX:
+        px //= 2
+    smem = _bwd_smem_bytes(c_all, w_in, seg, px)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{c_all} channels are too many for the CE backward kernel "
+                         f"({smem} bytes of shared memory per block)")
+    return seg, px, smem
 
 
 def _check(heads: tuple, labels: torch.Tensor, out_size) -> tuple[int, int]:
@@ -164,28 +205,26 @@ def _launch_bwd(heads: tuple, labels: torch.Tensor, count: torch.Tensor, grad: t
     h_out, w_out = out_size
     dev = x.device
     c_all = len(heads) * c
-    # shared memory of the row kernel: max and Σexp of 2 heads + the label per
-    # pixel, then a chunk of ck classes of d_up, all 4-byte words
-    ck = min(c_all, _SMEM_BYTES // (4 * w_out) - 5)
-    if ck < 1:
-        raise ValueError(f"output width {w_out} too large for the CE backward kernel")
-    smem = (5 + ck) * w_out * 4
+    seg, px, smem = _bwd_tiling(c_all, w_in, w_out)
     row_idx, row_wt = _device_tables(h_in, h_out, dev)
     col_idx, col_wt = _device_tables(w_in, w_out, dev)
-    col_rng = _device_ranges(w_in, w_out, dev)
-    row_rng = _device_ranges(h_in, h_out, dev)
+    row_start = _device_intervals(h_in, h_out, dev)
+    col_start = _device_intervals(w_in, w_out, dev)
     grad = grad.detach().to(torch.float32).reshape(1).contiguous()
-    tmp = torch.empty((n, c_all, h_out, w_in), dtype=torch.float32, device=dev)
+    # per low-res row interval: its corner sums on rows i and i+1, and each
+    # column segment's right edge
+    part = torch.empty((n, h_in, 2, c_all, w_in), dtype=torch.float32, device=dev)
+    edge = torch.empty((n, h_in, 2, c_all, -(-w_in // seg)), dtype=torch.float32, device=dev)
     dxs = [torch.empty_like(h) for h in heads]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.skd_upsampled_ce_bwd(
             x.data_ptr(), heads[-1].data_ptr(), _DTYPE_CODES[x.dtype], len(heads),
             labels.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
-            col_wt.data_ptr(), col_rng[0].data_ptr(), col_rng[1].data_ptr(),
-            row_rng[0].data_ptr(), row_rng[1].data_ptr(), grad.data_ptr(), count.data_ptr(),
-            tmp.data_ptr(), dxs[0].data_ptr(), dxs[-1].data_ptr(), n, c, h_in, w_in, h_out,
-            w_out, int(ignore_index), float(dsn_weight), ck, smem, stream)
+            col_wt.data_ptr(), row_start.data_ptr(), col_start.data_ptr(), grad.data_ptr(),
+            count.data_ptr(), part.data_ptr(), edge.data_ptr(), dxs[0].data_ptr(),
+            dxs[-1].data_ptr(), n, c, h_in, w_in, h_out, w_out, int(ignore_index),
+            float(dsn_weight), seg, px, smem, stream)
     if err != 0:
         raise RuntimeError(f"upsampled CE backward kernel launch failed: cudaError {err}")
     return dxs
@@ -202,6 +241,8 @@ class _UpsampledCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, counter, out_size, ignore_index, dsn_weight, labels, *heads):
         labels = _labels_i32(labels)
+        if any(ctx.needs_input_grad):  # a shape the backward cannot take raises here
+            _bwd_tiling(len(heads) * heads[0].shape[1], heads[0].shape[3], out_size[1])
         loss, count = _launch_fwd(heads, labels, out_size, ignore_index, dsn_weight)
         counter.launches += 1
         ctx.save_for_backward(labels, count, *heads)

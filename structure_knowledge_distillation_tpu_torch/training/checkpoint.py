@@ -117,10 +117,30 @@ def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarra
     return out
 
 
+def _numpy_safe_globals() -> list:
+    """The numpy globals that the reference's rich checkpoints pickle beside
+    the state dict (`best_mean_IU` a numpy scalar, `IU_array` an ndarray):
+    the scalar and ndarray reconstructors under their numpy 1 (`numpy.core`)
+    and numpy 2 (`numpy._core`) names, `np.dtype`, its per-type classes, and
+    `np.ndarray`. Nothing else of numpy is allowed."""
+    multiarray = (np._core if hasattr(np, "_core") else np.core).multiarray
+    out = [np.dtype, np.ndarray]
+    for core in ("numpy.core", "numpy._core"):
+        out += [(multiarray.scalar, f"{core}.multiarray.scalar"),
+                (multiarray._reconstruct, f"{core}.multiarray._reconstruct")]
+    dtypes = getattr(np, "dtypes", None)  # numpy >= 1.25
+    if dtypes is not None:
+        out += [getattr(dtypes, n) for n in dir(dtypes) if n.endswith("DType")]
+    return out
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Load a `.pth` state dict (or a `{"state_dict": ...}` checkpoint) onto
-    the CPU. Only tensors and plain containers are unpickled."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    the CPU. Only tensors, plain containers and the numpy scalars and arrays
+    of a rich checkpoint's metadata are unpickled; any other object is
+    refused."""
+    with torch.serialization.safe_globals(_numpy_safe_globals()):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}

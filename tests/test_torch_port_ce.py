@@ -31,7 +31,11 @@ from structure_knowledge_distillation_tpu_torch.losses import (
     cross_entropy_ignore,
 )
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
-    tap_ranges,
+    _BWD_PX,
+    _SMEM_MAX,
+    _bwd_smem_bytes,
+    _bwd_tiling,
+    tap_intervals,
     upsampled_ce_loss,
     upsampled_ce_loss_dsn,
 )
@@ -164,15 +168,47 @@ def test_cross_entropy_ignore_matches_torch():
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("n_in,n_out", [(65, 512), (33, 256), (17, 129), (23, 177),
-                                        (1, 9), (9, 1), (13, 5)])
-def test_tap_ranges_cover_the_transposed_interpolation(n_in, n_out):
-    """Each input sample's [start, end) holds every output sample with a
-    non-zero weight on it, and no output sample outside the range has one."""
+SIZE_PAIRS = [(65, 512), (33, 256), (17, 129), (23, 177), (1, 9), (9, 1), (13, 5)]
+
+
+@pytest.mark.parametrize("n_in,n_out", SIZE_PAIRS)
+def test_tap_intervals_partition_the_transposed_interpolation(n_in, n_out):
+    """The intervals [start[j], start[j+1]) partition the output samples in
+    order; every sample of interval j has a non-zero weight on input j and
+    none outside inputs j and j + 1 (the two rows or columns the backward
+    kernel stages for interval j)."""
     a = _interp_matrix_np(n_in, n_out)
-    rng = tap_ranges(n_in, n_out)
+    start = tap_intervals(n_in, n_out)
+    assert start.shape == (n_in + 1,) and start[0] == 0 and start[-1] == n_out
+    assert (np.diff(start) >= 0).all()
     for j in range(n_in):
-        rows = np.nonzero(a[:, j])[0]
-        inside = np.zeros(n_out, bool)
-        inside[rng[0, j]:rng[1, j]] = True
-        assert inside[rows].all() and not (a[~inside, j] != 0).any(), j
+        for y in range(start[j], start[j + 1]):
+            cols = np.nonzero(a[y])[0]
+            assert a[y, j] != 0 and set(cols) <= {j, j + 1}, (j, y, cols)
+
+
+@pytest.mark.parametrize("nheads,c,w_in,w_out", [
+    (2, 19, 65, 512),   # the train step: 16 columns, one chunk per segment row
+    (1, 5, 23, 177), (2, 3, 9, 64), (1, 8, 1, 40), (2, 2, 9, 20), (2, 5, 40, 23),
+    (2, 3, 257, 2048),  # w_out = 2048
+    (2, 3, 1, 2048),    # one column: its 2048 pixels in chunks
+    (2, 150, 65, 512),  # many classes: one column per block
+])
+def test_bwd_tiling_fits_the_card(nheads, c, w_in, w_out):
+    """The backward's tiling stays inside the card's shared memory, and
+    where a segment is wider than one column its pixels fit one chunk."""
+    c_all = nheads * c
+    seg, px, smem = _bwd_tiling(c_all, w_in, w_out)
+    assert 1 <= seg <= w_in and 1 <= px <= _BWD_PX
+    assert smem == _bwd_smem_bytes(c_all, w_in, seg, px) <= _SMEM_MAX
+    start = tap_intervals(w_in, w_out)
+    lo = np.arange(0, w_in, seg)
+    widest = (start[np.minimum(lo + seg, w_in)] - start[lo]).max()
+    assert seg == 1 or widest <= px
+    if (c_all, w_in, w_out) == (38, 65, 512):
+        assert (seg, px) == (16, 128)
+
+
+def test_bwd_tiling_refuses_what_no_block_holds():
+    with pytest.raises(ValueError, match="channels"):
+        _bwd_tiling(20000, 65, 512)

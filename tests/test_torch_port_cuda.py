@@ -15,6 +15,8 @@ versions: the loss to a relative 1e-5 and the low-res gradients to 1e-4 of
 their largest entry in f32 (f32 sums in another order), one bf16 ulp of the
 largest entry in bf16 (one rounding of the same f32 value, after sums in
 another order); two runs are bit-identical (no atomics, fixed-order sums).
+The cases include the backward's tiling edges: w_out = 2048, a downsampled
+output, intervals of one row and a column split into chunks.
 
 K6–K8 (`fused_bn.bn_act`, `bn_grad_sums`, `bn_grad_input`) against their
 plain versions: the same f32 operations in the same order, so the f32
@@ -113,6 +115,10 @@ CE_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
     ((2, 3, 1, 9), (1, 64)),        # one-row input and output
     ((1, 4, 6, 1), (40, 1)),        # one-column input and output
     ((2, 7, 33, 33), (256, 256)),
+    ((1, 3, 9, 257), (16, 2048)),   # w_out = 2048: 16 columns per backward block
+    ((1, 5, 40, 40), (17, 23)),     # downsampled: empty row intervals and column cells
+    ((1, 4, 33, 9), (40, 20)),      # intervals of one high-res row
+    ((1, 3, 4, 1), (5, 300)),       # one column of 300 pixels: three chunks per row
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads", [1, 2])

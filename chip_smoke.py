@@ -25,12 +25,18 @@ any failure ends the run with a non-zero exit:
      make_fast_val_fn;
   7. ce_kernel: the upsampled-CE kernels K4/K5 (two heads) and K2/K3 (one
      head) against their plain versions at the train shape, (8,19,65,65)
-     logits → (8,512,512) labels, f32 and bf16, 5 % and 100 % ignored
-     labels: loss within a relative 1e-5, low-res gradients within 1e-4 of
-     their largest entry (f32) or one bf16 ulp of it (bf16), two runs
-     bit-identical; warm median device times, forward and forward+backward;
-     K5 (bf16, 5 % ignored) at least 4× faster than its plain version, and
-     no spill in the ptxas report of the backward's two kernels;
+     logits → (8,512,512) int32 labels (the train step's dtype), f32 and
+     bf16, 5 % and 100 % ignored labels: loss within a relative 1e-5,
+     low-res gradients within 1e-4 of their largest entry (f32) or one bf16
+     ulp of it (bf16), two runs bit-identical; warm median device times,
+     forward and forward+backward. Forward and backward share one tiling:
+     a block per (image, low-res row interval, column window or segment)
+     stages its two low-res rows once and interpolates along H once per
+     high-res row; the forward then interpolates each class once per pixel
+     into registers, four classes at a time, for the log-sum-exp and the
+     picked logit. K4 (bf16, 5 % ignored) must be at least 10× and K5 at
+     least 4× faster than its plain version, and the ptxas report of the
+     forward's and backward's kernels must show no spill;
   8. train: KDTrainer.fit at the reference recipe (batch 8, 512² crops,
      bf16 convs, Pi+Pa+Ho, wgan-gp) with a seeded random full-width R101
      teacher and seeded R18 student and discriminator: 2 warm-up steps, then
@@ -154,6 +160,7 @@ CLASS_MAP_AGREEMENT_MIN = 0.999
 # gradient is one rounding of nearly the same f32 value
 CE_LOSS_RTOL = 1e-5
 CE_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+CE_FWD_SPEEDUP_MIN = 10.0  # K4 against its plain version, bf16, 5 % ignored
 CE_BWD_SPEEDUP_MIN = 4.0  # K5 against its plain version, bf16, 5 % ignored
 TRAIN_SHAPE = (8, NUM_CLASSES, 65, 65)
 TRAIN_CROP = (512, 512)
@@ -461,18 +468,23 @@ def _ce_case(device, heads, dtype, ignored, seed):
     g = torch.Generator().manual_seed(seed)
     xs = [(2.0 * torch.randn(TRAIN_SHAPE, generator=g)).to(device, dtype).requires_grad_()
           for _ in range(heads)]
-    labels = torch.randint(0, NUM_CLASSES, (TRAIN_SHAPE[0],) + TRAIN_CROP, generator=g)
+    # int32, as the train step's labels are (data/synthetic.py): the wrapper
+    # then launches no cast of its own inside the timed forward
+    labels = torch.randint(0, NUM_CLASSES, (TRAIN_SHAPE[0],) + TRAIN_CROP, generator=g,
+                           dtype=torch.int32)
     labels[torch.rand(labels.shape, generator=g) < ignored] = 255
     return xs, labels.to(device)
 
 
 def phase_ce_kernel(device: torch.device) -> dict:
     """K2–K5 against the plain versions; returns the JSON fields per kernel."""
-    # pass 1 and pass 2 of the backward, one instantiation per dtype each
-    bwd_ptxas = [k for k in ptxas_report() if "ce_bwd" in k["function"]]
-    check(len(bwd_ptxas) == 4 and
-          all(k["spill_stores"] == k["spill_loads"] == 0 for k in bwd_ptxas),
-          f"the CE backward kernels' ptxas report: {bwd_ptxas}")
+    # the forward, and pass 1 and pass 2 of the backward, one instantiation
+    # per dtype each
+    ce_ptxas = [k for k in ptxas_report() if "ce_fwd" in k["function"] or
+                "ce_bwd" in k["function"]]
+    check(len(ce_ptxas) == 6 and
+          all(k["spill_stores"] == k["spill_loads"] == 0 for k in ce_ptxas),
+          f"the CE kernels' ptxas report: {ce_ptxas}")
     cases, record = [], {}
     for heads, fn, plain, k_fwd, k_bwd in ((2, upsampled_ce_loss_dsn, upsampled_ce_loss_dsn_plain,
                                             "K4", "K5"),
@@ -519,13 +531,17 @@ def phase_ce_kernel(device: torch.device) -> dict:
                 plain_bwd_ms = cuda_median_ms(
                     lambda: torch.autograd.grad(ref, xs, retain_graph=True))
                 if heads == 2 and dtype == torch.bfloat16:
+                    check(plain_fwd_ms >= CE_FWD_SPEEDUP_MIN * fwd_ms,
+                          f"K4 {name}: {fwd_ms} ms is not {CE_FWD_SPEEDUP_MIN}x faster than "
+                          f"the plain version's {plain_fwd_ms} ms")
                     check(plain_bwd_ms >= CE_BWD_SPEEDUP_MIN * bwd_ms,
                           f"K5 {name}: {bwd_ms} ms is not {CE_BWD_SPEEDUP_MIN}x faster than "
                           f"the plain version's {plain_bwd_ms} ms")
                 cases.append({"case": name, "loss": loss.item(), "loss_abs_err": loss_err,
                               "grad_max_abs_err": grad_err, "grad_max": grad_max,
                               "bit_identical": True, "fwd_ms": fwd_ms,
-                              "plain_fwd_ms": plain_fwd_ms, "bwd_ms": bwd_ms,
+                              "plain_fwd_ms": plain_fwd_ms,
+                              "fwd_speedup_vs_plain": plain_fwd_ms / fwd_ms, "bwd_ms": bwd_ms,
                               "plain_bwd_ms": plain_bwd_ms,
                               "bwd_speedup_vs_plain": plain_bwd_ms / bwd_ms, "fwd_bwd_ms": fb_ms,
                               "plain_fwd_bwd_ms": plain_fb_ms})
@@ -546,12 +562,14 @@ def phase_ce_kernel(device: torch.device) -> dict:
                     label_bytes = labels.numel() * 4  # the kernels read int32 labels
                     record[k_fwd] = {"max_abs_err": loss_err, "ms": fwd_ms,
                                      "plain_ms": plain_fwd_ms, "library_ms": None,
-                                     **card_bound(logits_bytes + labels.nbytes + 4, fwd_flops)}
+                                     **card_bound(logits_bytes + label_bytes + 4, fwd_flops)}
                     record[k_bwd] = {"max_abs_err": grad_err, "ms": bwd_ms,
                                      "plain_ms": plain_bwd_ms, "library_ms": None,
                                      **card_bound(2 * logits_bytes + label_bytes, bwd_flops)}
+                    for k in (k_fwd, k_bwd):
+                        record[k]["bound_share"] = record[k]["bound_ms"] / record[k]["ms"]
     phase(7, "ce_kernel", shape=list(TRAIN_SHAPE), out=list(TRAIN_CROP), cases=cases,
-          bwd_ptxas=bwd_ptxas)
+          ptxas=ce_ptxas)
     return record
 
 
@@ -1107,14 +1125,21 @@ def main() -> int:
     # shape, which the R18 student never does, so the train path counts 0 of
     # them. Errors: |loss − plain| for a forward, max |grad − plain| for a
     # backward, at the train shape in bf16; ms: device time of that kernel.
-    for key, name, line in (("K2", "upsampled_ce_loss (forward)", 183),
-                            ("K3", "upsampled_ce_loss (backward)", 227),
-                            ("K4", "upsampled_ce_loss_dsn (forward)", 315),
-                            ("K5", "upsampled_ce_loss_dsn (backward)", 362)):
+    fwd_design = ("ce_fwd_interval_kernel: a block per (image, low-res row interval, window of "
+                  "512 columns) stages the two low-res rows, interpolates along H once per row "
+                  "and along W once per pixel and class into registers, four classes at a "
+                  "time, for the log-sum-exp and the picked logit; then ce_reduce_kernel")
+    bwd_design = ("ce_bwd_interval_kernel: a block per (image, low-res row interval, column "
+                  "segment) sums the corner gradients of its cells in shared memory; then "
+                  "ce_bwd_combine_kernel")
+    for key, name, line, design in (("K2", "upsampled_ce_loss (forward)", 183, fwd_design),
+                                    ("K3", "upsampled_ce_loss (backward)", 227, bwd_design),
+                                    ("K4", "upsampled_ce_loss_dsn (forward)", 315, fwd_design),
+                                    ("K5", "upsampled_ce_loss_dsn (backward)", 362, bwd_design)):
         kernels.append({"name": name, "route": "cuda", "source": ce_source,
                         "replaces": f"{pallas_ce}:{line}", "path": "train",
                         "launches": train["launches"][key],
-                        "on_main_path": key in ("K4", "K5"), **ce[key]})
+                        "on_main_path": key in ("K4", "K5"), "design": design, **ce[key]})
     # K6–K8: launches of the fused train step's timed steps plus the fused
     # eval sweep's; errors and times at the shapes phase_bn_kernel names
     bn_source = "structure_knowledge_distillation_tpu_torch/csrc/fused_bn.cu"

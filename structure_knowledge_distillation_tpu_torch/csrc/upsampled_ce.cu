@@ -17,12 +17,18 @@
 // upsampled pixel reads only 2×2 low-res taps per class, and CUDA blocks run
 // in parallel in no order. So:
 //
-//   forward  one thread owns one output pixel: it interpolates each class in
-//            f32 (height first, then width, every product and sum rounded on
-//            its own as the dense f32 matmuls do), takes each head's max,
-//            log-sum-exp and picked logit, and masks label == ignore. A block
-//            reduces its pixels in a fixed tree; a second kernel reduces the
-//            per-block partials in a fixed order and forms
+//   forward  one block per (image, low-res row interval, window of high-res
+//            columns): an interval is the high-res rows whose first row tap
+//            is one low-res row i (tables from the host), so the block
+//            stages rows i and i + 1 of the columns its window reads, once.
+//            Per high-res row it interpolates along H once for the row
+//            (height first, then width, every product and sum rounded on its
+//            own as the dense f32 matmuls do), then each thread interpolates
+//            each class of its pixels once along W into registers, a few
+//            classes at a time, and takes the log-sum-exp and the picked
+//            logit from those values, masking label == ignore. A
+//            block reduces its pixels in a fixed tree; a second kernel
+//            reduces the per-block partials in a fixed order and forms
 //            sum_main/max(count,1) + w·(sum_aux/max(count,1)) (pallas_ce.py:
 //            343-350). The valid count is an exact integer.
 //   backward the transpose of the interpolation, dX_k = Ahᵀ·d_k·Aw with
@@ -36,8 +42,8 @@
 //                reads only the 2C × 2 × (cells + 1) logits it stages in
 //                shared memory. Per high-res row it interpolates along H once
 //                for the row, then along W once per pixel and class into
-//                shared memory, forms the softmax there in the forward's
-//                order, and one thread per (cell, channel) walks the cell's
+//                shared memory, forms the softmax there (the max, then
+//                Σexp), and one thread per (cell, channel) walks the cell's
 //                pixels, summing d·wy·wx into the cell's four corners (rows
 //                i, i+1 × columns j, j+1). It writes, per row i and i+1 of
 //                the interval, the corners combined along W within the
@@ -51,10 +57,11 @@
 // What bounds it on an H100 at the train shape, (8,19,65,65)×2 logits and
 // (8,512,512) labels: the forward reads 1.3 MB of logits (L2-resident) and
 // 8 MB of labels and writes almost nothing, so it is bound by instruction
-// issue, 2·19 four-tap interpolations per pixel done twice (max, then
-// exp-sum). The backward is bound by instruction issue too: per labelled
-// pixel and class one W interpolation (the H interpolation is shared by a
-// row's pixels), one ex2, and four fused multiply-adds;
+// issue: per labelled pixel, head and class one W interpolation from a pair
+// in shared memory, its max, one ex2 and the sum and pick (the H
+// interpolation is shared by a row's pixels). The backward is bound by
+// instruction issue too: per labelled pixel and class one W interpolation,
+// one ex2, and four fused multiply-adds;
 // its only traffic besides logits, labels and dX is part, 8·65·2·38·65·4 B =
 // 10 MB, written once and read once, L2-resident. Results are bit-identical
 // from run to run.
@@ -71,11 +78,17 @@
 namespace {
 
 constexpr int kFwdThreads = 256;
+constexpr int kFwdPx = 2;     // forward pixels per thread: a window holds at most 512
+constexpr int kFwdStage = 20;  // forward staging loads in flight per thread: the
+// train shape's 2·38·65 staged values in one round
+constexpr int kFwdChunk = 4;  // classes the forward holds in registers at once
 constexpr int kReduceThreads = 1024;
 constexpr int kBwdThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 // the H100's dynamic shared memory per block (opt-in above 48 KB)
 constexpr int64_t kMaxSmemBytes = 227 * 1024;
+// the forward's static shared memory: the block's reduction, 3 words a thread
+constexpr int64_t kFwdStaticSmem = 3 * 4 * kFwdThreads;
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 
@@ -100,80 +113,190 @@ __device__ __forceinline__ float lerp2(float w0, float a, float w1, float b) {
   return __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
 }
 
-// The 2×2-tap geometry of one output pixel (y, x).
-struct Taps {
-  int64_t o00, o01, o10, o11;
-  float wy0, wy1, wx0, wx1;
-};
-
-__device__ __forceinline__ Taps make_taps(const int* row_idx, const float* row_wt,
-                                          const int* col_idx, const float* col_wt,
-                                          int y, int x, int h_out, int w_out,
-                                          int w_in) {
-  const int y0 = row_idx[y], y1 = row_idx[h_out + y];
-  const int x0 = col_idx[x], x1 = col_idx[w_out + x];
-  Taps t;
-  t.wy0 = row_wt[y];
-  t.wy1 = row_wt[h_out + y];
-  t.wx0 = col_wt[x];
-  t.wx1 = col_wt[w_out + x];
-  t.o00 = static_cast<int64_t>(y0) * w_in + x0;
-  t.o01 = static_cast<int64_t>(y0) * w_in + x1;
-  t.o10 = static_cast<int64_t>(y1) * w_in + x0;
-  t.o11 = static_cast<int64_t>(y1) * w_in + x1;
-  return t;
+// q / d for 0 <= q < 2^22 and d >= 1: the f32 product with 1/d is within one
+// of the quotient, and one step each way corrects it
+__device__ __forceinline__ int div_small(int q, int d, float inv_d) {
+  int r = __float2int_rz(__fmul_rn(__int2float_rn(q), inv_d));
+  r -= r * d > q;
+  r += (r + 1) * d <= q;
+  return r;
 }
 
-template <typename T>
-__device__ __forceinline__ float interp(const T* plane, const Taps& t) {
-  const float left = lerp2(t.wy0, load_f32(plane + t.o00), t.wy1, load_f32(plane + t.o10));
-  const float right = lerp2(t.wy0, load_f32(plane + t.o01), t.wy1, load_f32(plane + t.o11));
-  return lerp2(t.wx0, left, t.wx1, right);
+// Classes [0, KC) of vp (the first kn of them where kTail) for one pixel
+// and head, interpolated once along W into registers: the running max m
+// takes their max, the running sum s is rescaled to it and gains their
+// 2^((u − m)·log2e), and picked takes the one at `label` if it is among them.
+template <int KC, bool kTail>
+__device__ __forceinline__ void lse_chunk(const float2* vp, int ncols, int kn, float wx0,
+                                          float wx1, int label, float& m, float& s,
+                                          float& picked) {
+  float u[KC];
+  float mc = m;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    if (kTail && k >= kn) break;
+    const float2 t = vp[k * ncols];
+    u[k] = lerp2(wx0, t.x, wx1, t.y);
+    picked = k == label ? u[k] : picked;
+    mc = fmaxf(mc, u[k]);
+  }
+  const float m2 = __fmul_rn(mc, kLog2e);
+  s = __fmul_rn(s, ex2(__fmaf_rn(m, kLog2e, -m2)));
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    if (kTail && k >= kn) break;
+    s = __fadd_rn(s, ex2(__fmaf_rn(u[k], kLog2e, -m2)));
+  }
+  m = mc;
 }
 
-// Max and Σexp(v − max) over the C classes of one head at one pixel.
-template <typename T>
-__device__ __forceinline__ void head_stats(const T* base, int64_t plane, int c,
-                                           const Taps& t, float* m_out,
-                                           float* s_out) {
-  float m = interp(base, t);
-  for (int k = 1; k < c; ++k) m = fmaxf(m, interp(base + k * plane, t));
-  float s = 0.0f;
-  for (int k = 0; k < c; ++k) s = __fadd_rn(s, expf(__fsub_rn(interp(base + k * plane, t), m)));
-  *m_out = m;
-  *s_out = s;
+// One pixel's lse − picked for one head, each class interpolated once along
+// W from its pair at vp + k·ncols, kFwdChunk classes at a time (a chunk's
+// max, then its exps against the new running max: one ex2 a class and one a
+// chunk); the picked logit is 0 for a label outside [0, c).
+__device__ __forceinline__ float pixel_loss(const float2* vp, int ncols, int c, float wx0,
+                                            float wx1, int label) {
+  float m = -INFINITY, s = 0.0f, picked = 0.0f;
+  int k0 = 0;
+  for (; k0 + kFwdChunk <= c; k0 += kFwdChunk) {
+    lse_chunk<kFwdChunk, false>(vp + k0 * ncols, ncols, kFwdChunk, wx0, wx1, label - k0, m, s,
+                                picked);
+  }
+  if (k0 < c) {
+    lse_chunk<kFwdChunk, true>(vp + k0 * ncols, ncols, c - k0, wx0, wx1, label - k0, m, s,
+                               picked);
+  }
+  return __fsub_rn(__fadd_rn(m, __logf(s)), picked);
 }
 
+// Forward: block (column window w, low-res row interval i, image b). The
+// interval is the high-res rows y whose first row tap is i, [row_start[i],
+// row_start[i+1]); the window is the high-res columns [w·px, (w+1)·px), whose
+// column taps span the low-res columns cl .. ch, which the block stages once
+// for rows i and i + 1 (ncols = ch − cl + 1 of them, at most ncols_max),
+// kFwdStage loads in flight per thread.
+//
+// Per high-res row y of the interval:
+//   V  the staged rows interpolated along H (height first, each product and
+//      sum rounded on its own), once for the row, as pairs (V[col],
+//      V[col + 1]) so that S reads both column taps of a class in one load;
+//   S  one thread per pixel (kFwdPx of them per thread) takes its column
+//      taps from registers and its label, loaded one row ahead, and adds
+//      its lse − picked of each head (pixel_loss) to a register sum per
+//      head, in row and pixel order. Main and aux are two calls, not one
+//      loop over both heads: that spilled and ran slower on an H100.
+// A pixel whose first column tap is the last staged column has no second tap
+// and a second weight of exactly 0 (ops/upsampled_argmax.py tap_tables): the
+// pair's second value there is any finite staged value, and adds 0.
+// At the end a fixed tree reduces the block's sums and valid count into one
+// partial per block.
 template <typename T>
-__global__ void ce_fwd_kernel(const T* __restrict__ x_main, const T* __restrict__ x_aux,
-                              int nheads, const int* __restrict__ labels,
-                              const int* __restrict__ row_idx, const float* __restrict__ row_wt,
-                              const int* __restrict__ col_idx, const float* __restrict__ col_wt,
-                              float* __restrict__ part_sums, int* __restrict__ part_cnt,
-                              int n, int c, int h_in, int w_in, int h_out, int w_out,
-                              int ignore) {
+__global__ void __launch_bounds__(kFwdThreads) ce_fwd_interval_kernel(
+    const T* __restrict__ x_main, const T* __restrict__ x_aux, int nheads,
+    const int* __restrict__ labels, const int* __restrict__ row_idx,
+    const float* __restrict__ row_wt, const int* __restrict__ col_idx,
+    const float* __restrict__ col_wt, const int* __restrict__ row_start,
+    float* __restrict__ part_sums, int* __restrict__ part_cnt, int c, int h_in, int w_in,
+    int h_out, int w_out, int ignore, int px) {
+  extern __shared__ float smem[];
   __shared__ float s_loss[2][kFwdThreads];
   __shared__ int s_cnt[kFwdThreads];
-  const int64_t total = static_cast<int64_t>(n) * h_out * w_out;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int nwin = (w_out + px - 1) / px;
+  const int win = blockIdx.x % nwin;
+  const int i = blockIdx.x / nwin;
+  const int b = blockIdx.y;
+  const int c2 = nheads * c;
+  const int x0 = win * px, x1 = min(x0 + px, w_out);
+  const int cl = col_idx[x0];
+  const int ncols = col_idx[w_out + x1 - 1] - cl + 1;
+  const int nv = c2 * ncols;
+  float* xs = smem;                                  // (2, c2, ncols) rows i, i + 1
+  float2* v = reinterpret_cast<float2*>(xs + 2 * nv);  // (c2, ncols) rows along H, paired
+  const int y_begin = row_start[i], y_end = row_start[i + 1];
+
   float loss[2] = {0.0f, 0.0f};
   int valid = 0;
-  if (p < total) {
-    const int label = labels[p];
-    if (label != ignore) {
-      valid = 1;
-      const int x = static_cast<int>(p % w_out);
-      const int64_t r = p / w_out;
-      const int y = static_cast<int>(r % h_out);
-      const int b = static_cast<int>(r / h_out);
-      const Taps t = make_taps(row_idx, row_wt, col_idx, col_wt, y, x, h_out, w_out, w_in);
-      const int64_t plane = static_cast<int64_t>(h_in) * w_in;
-      for (int head = 0; head < nheads; ++head) {
-        const T* base = (head == 0 ? x_main : x_aux) + static_cast<int64_t>(b) * c * plane;
-        float m, s;
-        head_stats(base, plane, c, t, &m, &s);
-        const float picked = (label >= 0 && label < c) ? interp(base + label * plane, t) : 0.0f;
-        loss[head] = __fsub_rn(__fadd_rn(m, logf(s)), picked);
+  if (y_begin < y_end) {
+    const int64_t plane = static_cast<int64_t>(h_in) * w_in;
+    // the staged rows: element q is column q % ncols of channel row q / ncols
+    const float inv_ncols = __frcp_rn(static_cast<float>(ncols));
+    for (int q0 = threadIdx.x; q0 < 2 * nv; q0 += kFwdStage * kFwdThreads) {
+      float val[kFwdStage];
+#pragma unroll
+      for (int u = 0; u < kFwdStage; ++u) {
+        const int q = q0 + u * kFwdThreads;
+        val[u] = 0.0f;
+        if (q < 2 * nv) {
+          const int rk = div_small(q, ncols, inv_ncols);
+          const int r = rk < c2 ? 0 : 1, k = rk - r * c2;
+          const int row = r == 0 ? i : min(i + 1, h_in - 1);
+          const T* base = k < c ? x_main : x_aux;
+          const int cls = k < c ? k : k - c;
+          val[u] = load_f32(base + (static_cast<int64_t>(b) * c + cls) * plane +
+                            static_cast<int64_t>(row) * w_in + cl + (q - rk * ncols));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFwdStage; ++u) {
+        const int q = q0 + u * kFwdThreads;
+        if (q < 2 * nv) xs[q] = val[u];
+      }
+    }
+    // this thread's pixels: column taps in registers, labels one row ahead
+    const int* lab_img = labels + static_cast<int64_t>(b) * h_out * w_out;
+    bool act[kFwdPx];
+    int lo[kFwdPx], label_next[kFwdPx];
+    float wx0[kFwdPx], wx1[kFwdPx];
+#pragma unroll
+    for (int j = 0; j < kFwdPx; ++j) {
+      const int x = x0 + threadIdx.x + j * kFwdThreads;
+      act[j] = x < x1;
+      lo[j] = act[j] ? col_idx[x] - cl : 0;
+      wx0[j] = act[j] ? col_wt[x] : 0.0f;
+      wx1[j] = act[j] ? col_wt[w_out + x] : 0.0f;
+      label_next[j] = act[j] ? lab_img[static_cast<int64_t>(y_begin) * w_out + x] : ignore;
+    }
+    float wy0_next = row_wt[y_begin], wy1_next = row_wt[h_out + y_begin];
+    int hi_next = row_idx[h_out + y_begin];
+    float* vf = reinterpret_cast<float*>(v);
+    for (int y = y_begin; y < y_end; ++y) {
+      const float wy0 = wy0_next, wy1 = wy1_next;
+      const int hi_off = hi_next == i ? 0 : nv;
+      int label[kFwdPx];
+#pragma unroll
+      for (int j = 0; j < kFwdPx; ++j) label[j] = label_next[j];
+      if (y + 1 < y_end) {
+        wy0_next = row_wt[y + 1];
+        wy1_next = row_wt[h_out + y + 1];
+        hi_next = row_idx[h_out + y + 1];
+#pragma unroll
+        for (int j = 0; j < kFwdPx; ++j) {
+          if (act[j]) {
+            label_next[j] = lab_img[static_cast<int64_t>(y + 1) * w_out + x0 + threadIdx.x +
+                                    j * kFwdThreads];
+          }
+        }
+      }
+      __syncthreads();  // the staging, or the previous row's S, is done
+      // V: value q is the first of pair q and the second of pair q − 1
+      for (int q = threadIdx.x; q < nv; q += blockDim.x) {
+        const float val = lerp2(wy0, xs[q], wy1, xs[hi_off + q]);
+        vf[2 * q] = val;
+        if (q > 0) vf[2 * q - 1] = val;
+        if (q == nv - 1) vf[2 * q + 1] = val;
+      }
+      __syncthreads();
+      // S
+#pragma unroll
+      for (int j = 0; j < kFwdPx; ++j) {
+        if (!act[j] || label[j] == ignore) continue;
+        ++valid;
+        const float2* vp = v + lo[j];
+        loss[0] = __fadd_rn(loss[0], pixel_loss(vp, ncols, c, wx0[j], wx1[j], label[j]));
+        if (nheads == 2) {
+          loss[1] = __fadd_rn(loss[1], pixel_loss(vp + c * ncols, ncols, c, wx0[j], wx1[j],
+                                                  label[j]));
+        }
       }
     }
   }
@@ -190,9 +313,10 @@ __global__ void ce_fwd_kernel(const T* __restrict__ x_main, const T* __restrict_
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    part_sums[2 * blockIdx.x] = s_loss[0][0];
-    part_sums[2 * blockIdx.x + 1] = s_loss[1][0];
-    part_cnt[blockIdx.x] = s_cnt[0];
+    const int64_t part = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    part_sums[2 * part] = s_loss[0][0];
+    part_sums[2 * part + 1] = s_loss[1][0];
+    part_cnt[part] = s_cnt[0];
   }
 }
 
@@ -247,9 +371,9 @@ __global__ void ce_reduce_kernel(const float* __restrict__ part_sums,
 //      for bit);
 //   S  one thread per (pixel, head), holding the pixel's column taps in
 //      registers for all the rows and loading the next row's label ahead,
-//      interpolates each class once along W into U (smem) as the forward
-//      does, takes the max and Σexp(u − max) in the forward's order (exp as
-//      one FMA and one ex2, a few ulps from the forward's expf), keeps
+//      interpolates each class once along W into U (smem), in the
+//      forward's order, takes the max and then Σexp(u − max) (exp as one FMA and one
+//      ex2; the forward's chunked sum differs by a few ulps), keeps
 //      exp(u − max) in U and f = scale/Σexp beside it (zeros for an ignored
 //      pixel), and stages the pixel's label;
 //   D  one thread per (cell j, class) walks the cell's pixels in order,
@@ -461,6 +585,11 @@ __global__ void ce_bwd_combine_kernel(const float* __restrict__ part,
   store(dx + (static_cast<int64_t>(b) * c + cls) * h_in * w_in + p, acc);
 }
 
+// The forward kernel's dynamic shared memory for windows that read at most
+// `ncols` low-res columns: the staged rows and their pairs along H, 4·c2·ncols
+// floats (ops/upsampled_ce.py::_fwd_smem_bytes mirrors it).
+int64_t fwd_smem_bytes(int c2, int ncols) { return 16 * static_cast<int64_t>(c2) * ncols; }
+
 // The pass-1 kernel's dynamic shared memory for `seg` cells and chunks of
 // `px_max` pixels, in bytes (ops/upsampled_ce.py::_bwd_tiling mirrors it).
 int64_t bwd_smem_bytes(int c2, int w_in, int seg, int px_max) {
@@ -479,41 +608,63 @@ bool bad_shape(int n, int c, int h_in, int w_in, int h_out, int w_out, int nhead
 
 // Forward. dtype: 0 = float32, 1 = bfloat16. x_main/x_aux: contiguous
 // (n, c, h_in, w_in) logits (x_aux unused when nheads == 1); labels (n, h_out,
-// w_out) int32; part_sums (2·nparts,) f32 and part_cnt (nparts,) int32
-// scratch with nparts = ceil(n·h_out·w_out / 256); out_sums (2,) f32,
-// out_cnt (1,) int32, out_loss (1,) f32.
+// w_out) int32; row_start (h_in + 1,) int32: the high-res rows whose first
+// tap is each low-res row, [start[i], start[i+1]). px: high-res columns per
+// block, at most kFwdThreads·kFwdPx; ncols_max: the most low-res columns any
+// window of px columns reads (ops/upsampled_ce.py::_fwd_tiling), which sets
+// the dynamic shared memory (fwd_smem_bytes, opted in above 48 KB).
+// part_sums (2·nparts,) f32 and part_cnt (nparts,) int32 scratch with nparts
+// = n·h_in·ceil(w_out/px); out_sums (2,) f32, out_cnt (1,) int32, out_loss
+// (1,) f32.
 extern "C" int skd_upsampled_ce_fwd(const void* x_main, const void* x_aux, int dtype, int nheads,
                                     const void* labels, const void* row_idx, const void* row_wt,
-                                    const void* col_idx, const void* col_wt, void* part_sums,
-                                    void* part_cnt, void* out_sums, void* out_cnt, void* out_loss,
-                                    int n, int c, int h_in, int w_in, int h_out, int w_out,
-                                    int ignore, float dsn_weight, void* stream) {
-  if (bad_shape(n, c, h_in, w_in, h_out, w_out, nheads, dtype)) {
+                                    const void* col_idx, const void* col_wt,
+                                    const void* row_start, void* part_sums, void* part_cnt,
+                                    void* out_sums, void* out_cnt, void* out_loss, int n, int c,
+                                    int h_in, int w_in, int h_out, int w_out, int ignore,
+                                    float dsn_weight, int px, int ncols_max, void* stream) {
+  if (bad_shape(n, c, h_in, w_in, h_out, w_out, nheads, dtype) || n > 65535 || px <= 0 ||
+      px > kFwdThreads * kFwdPx || ncols_max <= 0 || ncols_max > w_in) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(n) * h_out * w_out;
-  const int64_t nparts = (total + kFwdThreads - 1) / kFwdThreads;
-  if (nparts > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = fwd_smem_bytes(nheads * c, ncols_max);
+  const int64_t nwin = (w_out + px - 1) / px;
+  const int64_t nparts = nwin * h_in * n;
+  if (smem + kFwdStaticSmem > kMaxSmemBytes || nwin * h_in > 0x7fffffff ||
+      nparts > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(nwin * h_in), static_cast<unsigned>(n));
   const int* lab = static_cast<const int*>(labels);
   const int* ri = static_cast<const int*>(row_idx);
   const float* rw = static_cast<const float*>(row_wt);
   const int* ci = static_cast<const int*>(col_idx);
   const float* cw = static_cast<const float*>(col_wt);
+  const int* rs = static_cast<const int*>(row_start);
   float* ps = static_cast<float*>(part_sums);
   int* pc = static_cast<int*>(part_cnt);
-  const unsigned blocks = static_cast<unsigned>(nparts);
+  cudaError_t err;
   if (dtype == 0) {
-    ce_fwd_kernel<float><<<blocks, kFwdThreads, 0, s>>>(
+    auto kernel = ce_fwd_interval_kernel<float>;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    kernel<<<grid, kFwdThreads, smem, s>>>(
         static_cast<const float*>(x_main), static_cast<const float*>(x_aux), nheads, lab, ri, rw,
-        ci, cw, ps, pc, n, c, h_in, w_in, h_out, w_out, ignore);
+        ci, cw, rs, ps, pc, c, h_in, w_in, h_out, w_out, ignore, px);
   } else {
-    ce_fwd_kernel<__nv_bfloat16><<<blocks, kFwdThreads, 0, s>>>(
+    auto kernel = ce_fwd_interval_kernel<__nv_bfloat16>;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    kernel<<<grid, kFwdThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(x_main), static_cast<const __nv_bfloat16*>(x_aux),
-        nheads, lab, ri, rw, ci, cw, ps, pc, n, c, h_in, w_in, h_out, w_out, ignore);
+        nheads, lab, ri, rw, ci, cw, rs, ps, pc, c, h_in, w_in, h_out, w_out, ignore, px);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   ce_reduce_kernel<<<1, kReduceThreads, 0, s>>>(ps, pc, static_cast<int>(nparts), nheads,
                                                 dsn_weight, static_cast<float*>(out_sums),
                                                 static_cast<int*>(out_cnt),

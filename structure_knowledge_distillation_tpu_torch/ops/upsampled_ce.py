@@ -42,11 +42,13 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FWD_THREADS = 256  # csrc/upsampled_ce.cu kFwdThreads: one partial per block
+_FWD_PX = 512  # high-res columns per forward block: csrc/upsampled_ce.cu's 256
+# threads (kFwdThreads), 2 pixels each (kFwdPx)
 _BWD_PX = 128  # pixels per chunk of the backward's softmax buffer: with 2 heads,
 # one thread per (pixel, head) of csrc/upsampled_ce.cu's 256 (kBwdThreads)
 _BWD_SMEM_SOFT = 64 * 1024  # keeps several backward blocks on an SM
 _SMEM_MAX = 227 * 1024  # the H100's dynamic shared memory per block
+_FWD_SMEM_MAX = _SMEM_MAX - 3 * 4 * 256  # less the forward's static reduction buffers
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
@@ -84,8 +86,9 @@ def upsampled_ce_loss_dsn_plain(logits: torch.Tensor, aux_logits: torch.Tensor,
 
 def tap_intervals(n_in: int, n_out: int) -> np.ndarray:
     """(n_in + 1,) int32 offsets: the output samples whose first tap is input
-    sample j are [start[j], start[j+1]), the interval (a row) or cell (a
-    column) that one block of the backward walks. The first tap is monotone
+    sample j are [start[j], start[j+1]), the interval (a row) that one block
+    of the forward or backward walks, or the cell (a column) of the
+    backward. The first tap is monotone
     in the output index and the second is the first or the one after it
     (both checked), so each output sample of interval j reads only inputs j
     and j + 1, and its weight on j + 1 is 0 where it has no second tap."""
@@ -99,6 +102,36 @@ def tap_intervals(n_in: int, n_out: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _device_intervals(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tap_intervals(n_in, n_out)).to(device)
+
+
+def _fwd_smem_bytes(c_all: int, ncols: int) -> int:
+    """The forward kernel's dynamic shared memory: rows i and i + 1 of ncols
+    low-res columns of every channel, staged, and their H interpolation as
+    pairs (V[col], V[col+1]), 4·c_all·ncols words (csrc/upsampled_ce.cu
+    fwd_smem_bytes)."""
+    return 16 * c_all * ncols
+
+
+@functools.lru_cache(maxsize=32)
+def _fwd_tiling(c_all: int, w_in: int, w_out: int) -> tuple[int, int]:
+    """(px, ncols) of the forward: high-res columns per block,
+    halved from _FWD_PX while the low-res columns that the widest window of px
+    columns reads (ncols) overfill the block's shared memory. Raises
+    ValueError where even a one-column window does not fit."""
+    (lo, hi), _ = tap_tables(w_in, w_out)
+
+    def widest(px: int) -> int:
+        x0 = np.arange(0, w_out, px)
+        return int((hi[np.minimum(x0 + px, w_out) - 1] - lo[x0]).max()) + 1
+
+    px = _FWD_PX
+    while px > 1 and _fwd_smem_bytes(c_all, widest(px)) > _FWD_SMEM_MAX:
+        px //= 2
+    ncols = widest(px)
+    if _fwd_smem_bytes(c_all, ncols) > _FWD_SMEM_MAX:
+        raise ValueError(f"{c_all} channels are too many for the CE forward kernel "
+                         f"({_fwd_smem_bytes(c_all, ncols)} bytes of shared memory per block)")
+    return px, ncols
 
 
 def _bwd_smem_bytes(c_all: int, w_in: int, seg: int, px: int) -> int:
@@ -173,9 +206,11 @@ def _launch_fwd(heads: tuple, labels: torch.Tensor, out_size, ignore_index: int,
     n, c, h_in, w_in = x.shape
     h_out, w_out = out_size
     dev = x.device
+    px, ncols = _fwd_tiling(len(heads) * c, w_in, w_out)
     row_idx, row_wt = _device_tables(h_in, h_out, dev)
     col_idx, col_wt = _device_tables(w_in, w_out, dev)
-    nparts = -(-n * h_out * w_out // _FWD_THREADS)
+    row_start = _device_intervals(h_in, h_out, dev)
+    nparts = n * h_in * -(-w_out // px)  # one per block
     part_sums = torch.empty(2 * nparts, dtype=torch.float32, device=dev)
     part_cnt = torch.empty(nparts, dtype=torch.int32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
@@ -187,9 +222,9 @@ def _launch_fwd(heads: tuple, labels: torch.Tensor, out_size, ignore_index: int,
         err = lib.skd_upsampled_ce_fwd(
             x.data_ptr(), aux.data_ptr(), _DTYPE_CODES[x.dtype], len(heads),
             labels.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
-            col_wt.data_ptr(), part_sums.data_ptr(), part_cnt.data_ptr(), sums.data_ptr(),
-            count.data_ptr(), loss.data_ptr(), n, c, h_in, w_in, h_out, w_out,
-            int(ignore_index), float(dsn_weight), stream)
+            col_wt.data_ptr(), row_start.data_ptr(), part_sums.data_ptr(), part_cnt.data_ptr(),
+            sums.data_ptr(), count.data_ptr(), loss.data_ptr(), n, c, h_in, w_in, h_out, w_out,
+            int(ignore_index), float(dsn_weight), px, ncols, stream)
     if err != 0:
         raise RuntimeError(f"upsampled CE forward kernel launch failed: cudaError {err}")
     return loss, count

@@ -30,11 +30,16 @@ from structure_knowledge_distillation_tpu_torch.losses import (
     criterion_dsn_fused,
     cross_entropy_ignore,
 )
+from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import tap_tables
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
     _BWD_PX,
+    _FWD_PX,
+    _FWD_SMEM_MAX,
     _SMEM_MAX,
     _bwd_smem_bytes,
     _bwd_tiling,
+    _fwd_smem_bytes,
+    _fwd_tiling,
     tap_intervals,
     upsampled_ce_loss,
     upsampled_ce_loss_dsn,
@@ -212,3 +217,40 @@ def test_bwd_tiling_fits_the_card(nheads, c, w_in, w_out):
 def test_bwd_tiling_refuses_what_no_block_holds():
     with pytest.raises(ValueError, match="channels"):
         _bwd_tiling(20000, 65, 512)
+
+
+# (classes, w_in, w_out) of the 9 shapes of tests/test_torch_port_cuda.py::
+# test_upsampled_ce_matches_plain, the train step's first
+CARD_CE_SHAPES = [(19, 65, 512), (5, 23, 177), (3, 9, 64), (4, 1, 1), (7, 33, 256),
+                  (3, 257, 2048), (5, 40, 23), (4, 9, 20), (3, 1, 300)]
+
+
+@pytest.mark.parametrize("nheads,c,w_in,w_out,expect", [
+    *[(h, *shape, None) for shape in CARD_CE_SHAPES for h in (1, 2)],
+    (2, 19, 65, 512, (512, 65)),    # the train step: one window of every column
+    (2, 3, 257, 2048, (512, 65)),   # w_out = 2048: four windows
+    (2, 3, 1, 2048, (512, 1)),      # one column
+    (2, 200, 65, 128, (64, 33)),    # many classes: windows of 64 columns
+    (1, 7, 2048, 512, None),        # wide downsampled rows: narrow windows
+])
+def test_fwd_tiling_fits_the_card(nheads, c, w_in, w_out, expect):
+    """Every window of px output columns reads at most ncols low-res columns
+    (from its first pixel's first tap to its last pixel's second), and their
+    staged rows fit the block's shared memory."""
+    c_all = nheads * c
+    px, ncols = _fwd_tiling(c_all, w_in, w_out)
+    assert 1 <= px <= _FWD_PX and 1 <= ncols <= w_in
+    assert _fwd_smem_bytes(c_all, ncols) <= _FWD_SMEM_MAX
+    (lo, hi), _ = tap_tables(w_in, w_out)
+    reads = [hi[min(x0 + px, w_out) - 1] - lo[x0] + 1 for x0 in range(0, w_out, px)]
+    assert max(reads) == ncols
+    if px < _FWD_PX:  # the next wider window would not fit
+        wider = [hi[min(x0 + 2 * px, w_out) - 1] - lo[x0] + 1 for x0 in range(0, w_out, 2 * px)]
+        assert _fwd_smem_bytes(c_all, max(wider)) > _FWD_SMEM_MAX
+    if expect is not None:
+        assert (px, ncols) == expect
+
+
+def test_fwd_tiling_refuses_what_no_block_holds():
+    with pytest.raises(ValueError, match="channels"):
+        _fwd_tiling(20000, 65, 512)

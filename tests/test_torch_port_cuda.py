@@ -16,7 +16,9 @@ their largest entry in f32 (f32 sums in another order), one bf16 ulp of the
 largest entry in bf16 (one rounding of the same f32 value, after sums in
 another order); two runs are bit-identical (no atomics, fixed-order sums).
 The cases include the backward's tiling edges: w_out = 2048, a downsampled
-output, intervals of one row and a column split into chunks.
+output, intervals of one row and a column split into chunks; and the
+forward's: labels outside [0, C) that are not ignored (counted, picking 0)
+and classes enough to split the output columns into several windows.
 
 K6–K8 (`fused_bn.bn_act`, `bn_grad_sums`, `bn_grad_input`) against their
 plain versions: the same f32 operations in the same order, so the f32
@@ -119,6 +121,7 @@ CE_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
     ((1, 5, 40, 40), (17, 23)),     # downsampled: empty row intervals and column cells
     ((1, 4, 33, 9), (40, 20)),      # intervals of one high-res row
     ((1, 3, 4, 1), (5, 300)),       # one column of 300 pixels: three chunks per row
+    ((2, 200, 9, 65), (16, 128)),   # 2 × 200 classes: forward windows of 64 columns
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads", [1, 2])
@@ -151,6 +154,37 @@ def test_upsampled_ce_matches_plain(cuda_device, shape, out, dtype, heads, ignor
         assert err <= CE_GRAD_REL[dtype] * scale + 1e-12, (err, scale)
     if ignored == 1.0:
         assert loss.item() == 0.0 and not any(g.any() for g in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2])
+def test_upsampled_ce_out_of_range_labels(cuda_device, dtype, heads):
+    """A label outside [0, C) that is not `ignore` is counted and picks 0:
+    its loss is the plain resize's lse alone."""
+    shape, out = (2, 5, 17, 23), (129, 177)
+    rng = np.random.RandomState(13)
+    xs = [torch.from_numpy((2.0 * rng.randn(*shape)).astype(np.float32)).to(cuda_device, dtype)
+          for _ in range(heads)]
+    labels = rng.randint(0, shape[1], (shape[0],) + out)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    odd = rng.rand(*labels.shape) < 0.1
+    labels[odd] = rng.choice([-7, -1, 5, 6, 254, 256, 1000], size=int(odd.sum()))
+    lab = torch.from_numpy(labels).to(cuda_device)
+    fn = upsampled_ce_loss if heads == 1 else upsampled_ce_loss_dsn
+    loss = fn(*xs, lab, out)
+    assert torch.equal(loss, fn(*xs, lab, out))
+
+    lab64 = lab.long()
+    mask = lab64 != 255
+    inside = (lab64 >= 0) & (lab64 < shape[1])
+    ref = 0.0
+    for w, x in zip((1.0, 0.4), xs):
+        up = resize_bilinear_align_corners(x.float(), out).double()
+        lse = torch.logsumexp(up, dim=1)
+        picked = up.gather(1, torch.where(inside, lab64, 0)[:, None])[:, 0]
+        ce = lse - torch.where(inside, picked, torch.zeros_like(picked))
+        ref += w * (ce[mask].sum() / mask.sum()).item()
+    np.testing.assert_allclose(loss.item(), ref, rtol=1e-5, atol=1e-7)
 
 
 def test_upsampled_ce_wrapper_checks(cuda_device):

@@ -14,8 +14,15 @@ any failure ends the run with a non-zero exit:
   2. build: compiles csrc/*.cu with nvcc (ops/_build.py) and prints the time;
   3. kernel: upsampled_argmax (K1) against upsampled_argmax_plain on the card
      at the eval path's shapes, f32 and bf16, plain and quantised (tied)
-     logits; mismatches must be < 1e-3 of the pixels and true ties (< 1e-5);
-     prints warm median times from CUDA events;
+     logits; mismatches must be < 1e-3 of the pixels and true ties (< 1e-5),
+     and the class map must equal a tap-wise oracle's (the kernel's order of
+     roundings, in separate torch operations) everywhere; prints warm median
+     times from CUDA events, with the two-call F.interpolate + argmax beside
+     them. K1 is one block per (image, low-res row interval, column window)
+     that stages two low-res rows, interpolates along H once per high-res
+     row and along W once per pixel and class; at the eval shape in f32 it
+     must be at least 20× faster than its plain version, and its ptxas
+     report must show no spill;
   4. slice: the full-width ResNet-18 PSPNet student with seeded weights runs
      evaluate_main over 4 synthetic 1024×2048 frames; mIoU must be finite in
      [0, 1], the confusion must count every in-bounds non-ignore pixel, and
@@ -55,11 +62,15 @@ any failure ends the run with a non-zero exit:
  11. train_fused: phase 8's setup with bn_fused=True teacher and student,
      through make_train_step (the function KDTrainer.fit calls); every loss
      finite, student and D parameters changed, K6 launched once per ABN of
-     teacher and student per step, K7 and K8 once per student ABN;
+     teacher and student per step, K7 and K8 once per student ABN. One more
+     step records the shape, dtype and activation of every K6–K8 launch;
+     each distinct call is timed once, and the line prints per kernel
+     Σ launches × ms and Σ launches × bound_ms per step (`bn_per_step`);
  12. train_fused_gpu_vs_cpu: phase 9 with bn_fused=True on both devices;
  13. eval_fused: phase 4's student with bn_fused=True through evaluate_main;
      K6 launched once per ABN per frame, mIoU within 1e-3 of the unfused
      model's on the same weights and frames, class maps agree in ≥ 0.999;
+     K6's sums per frame as phase 11's (`bn_per_frame`);
  14. conv3x3_probe: the JAX probe's main (scripts/bench_pallas_conv.py) on
      the card. K9 has two CUDA kernels, chosen by dtype and channel counts:
      at (8,256,256,64) bf16 → Cout 64 and 128 the tensor-core kernel
@@ -83,12 +94,14 @@ last two lines are the kernels' JSON record and the contract line
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -123,6 +136,7 @@ from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
     bn_grad_sums_plain,
 )
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.taps import tap_tables
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
     upsampled_argmax_plain,
@@ -149,9 +163,11 @@ FULL_RES = (1024, 2048)
 NUM_CLASSES = 19
 FRAMES = 4
 # K1 vs its plain version: the two sum the same two-tap products in another
-# order, so they may disagree only where two classes tie
+# order, so they may disagree only where two classes tie; against the
+# tap-wise oracle (the kernel's order and roundings) the class maps are equal
 MISMATCH_SHARE_MAX = 1e-3
 TIE_GAP_MAX = 1e-5
+K1_SPEEDUP_MIN = 20.0  # K1 against its plain version at the eval shape, f32
 # GPU vs CPU forward in full f32 (TF32 off): cuDNN and the CPU's convolutions
 # accumulate in different orders through ~20 layers
 LOGITS_REL_TOL = 1e-3
@@ -319,7 +335,26 @@ def phase_build() -> None:
     phase(2, "build", seconds=round(took, 3), nvcc=built, ptxas=ptxas_report())
 
 
+def _tapwise_argmax(x: torch.Tensor, out) -> torch.Tensor:
+    """K1's arithmetic tap by tap in separate torch operations on the card:
+    the two row taps interpolated along H, then the two column taps along W
+    (each product and sum its own kernel, rounded on its own), then the
+    first-index argmax over classes."""
+    n, c, h_in, w_in = x.shape
+    (ylo, yhi), (wy0, wy1) = (torch.from_numpy(a).to(x.device) for a in tap_tables(h_in, out[0]))
+    (xlo, xhi), (wx0, wx1) = (torch.from_numpy(a).to(x.device) for a in tap_tables(w_in, out[1]))
+    xf = x.float()
+    v = xf[:, :, ylo.long()] * wy0[:, None] + xf[:, :, yhi.long()] * wy1[:, None]
+    u = v[..., xlo.long()] * wx0 + v[..., xhi.long()] * wx1
+    return u.argmax(dim=1).to(torch.int32)
+
+
 def phase_kernel(device: torch.device) -> dict:
+    # one instantiation per dtype
+    k1_ptxas = [k for k in ptxas_report() if "upsampled_argmax" in k["function"]]
+    check(len(k1_ptxas) == 2 and
+          all(k["spill_stores"] == k["spill_loads"] == 0 for k in k1_ptxas),
+          f"K1's ptxas report: {k1_ptxas}")
     g = torch.Generator().manual_seed(1234)
     cases, max_gap, headline = [], 0.0, None
     for shape, out in (((1, NUM_CLASSES, 129, 257), FULL_RES),
@@ -344,11 +379,21 @@ def phase_kernel(device: torch.device) -> dict:
                 name = f"{tuple(shape)}->{out} {str(dtype)[6:]}{' quantised' if quantised else ''}"
                 check(share < MISMATCH_SHARE_MAX, f"K1 {name}: mismatch share {share}")
                 check(gap < TIE_GAP_MAX, f"K1 {name}: a mismatch is no tie (gap {gap})")
+                oracle_diff = int((k != _tapwise_argmax(x, out)).sum())
+                check(oracle_diff == 0, f"K1 {name}: {oracle_diff} pixels differ from the "
+                                        f"tap-wise oracle")
                 max_gap = max(max_gap, gap)
                 ms = cuda_median_ms(lambda: upsampled_argmax(x, out))
                 plain_ms = cuda_median_ms(lambda: upsampled_argmax_plain(x, out))
+                # what a user would otherwise write: two calls, the upsampled
+                # logits in between (not the same function: torch's resize
+                # rounds in its own order)
+                interp_argmax_ms = cuda_median_ms(lambda: F.interpolate(
+                    x, out, mode="bilinear", align_corners=True).argmax(1))
                 cases.append({"case": name, "mismatch": share, "tie_gap": gap,
-                              "ms": ms, "plain_ms": plain_ms})
+                              "oracle_mismatch": oracle_diff, "ms": ms, "plain_ms": plain_ms,
+                              "speedup_vs_plain": plain_ms / ms,
+                              "interpolate_argmax_ms": interp_argmax_ms})
                 if headline is None:  # (1,19,129,257)->(1024,2048) f32: the eval path's
                     # separable resize (a lerp of 3 operations per sample,
                     # along H on the input's columns, then along W) and a
@@ -358,7 +403,11 @@ def phase_kernel(device: torch.device) -> dict:
                     # no one PyTorch call upsamples and takes the argmax
                     headline = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                                 **card_bound(x.nbytes + k.nbytes, flops)}
-    phase(3, "kernel", cases=cases)
+                    headline["bound_share"] = headline["bound_ms"] / ms
+                    check(plain_ms >= K1_SPEEDUP_MIN * ms,
+                          f"K1 {name}: {ms} ms is not {K1_SPEEDUP_MIN}x faster than the plain "
+                          f"version's {plain_ms} ms")
+    phase(3, "kernel", cases=cases, ptxas=k1_ptxas)
     return {"max_abs_err": max_gap, **headline}
 
 
@@ -690,6 +739,11 @@ def phase_train_fused(device: torch.device, unfused: dict) -> dict:
     for k, n in expect.items():
         check(launches[k] == n, f"{k} launched {launches[k]} times in {TIMED_STEPS} steps, "
                                 f"expected {n}")
+    # one more step, after the timed ones, with every K6–K8 call recorded
+    per_step = _bn_launch_sums(_record_bn_launches(lambda: fit(batches[:1])), device)
+    for k in ("K6", "K7", "K8"):
+        check(per_step[k]["launches"] * TIMED_STEPS == expect[k],
+              f"the recorded step launched {k} {per_step[k]['launches']} times")
     stats = {"ms_per_step": 1e3 * took / TIMED_STEPS,
              "images_per_second": cfg.batch_size * TIMED_STEPS / took,
              "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
@@ -697,7 +751,8 @@ def phase_train_fused(device: torch.device, unfused: dict) -> dict:
           batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS,
           abn_modules={"teacher": n_teacher, "student": n_student}, **stats,
           unfused={k: unfused[k] for k in stats},
-          launches={k: launches[k] for k in expect}, first_step=steps[0], last_step=steps[-1])
+          launches={k: launches[k] for k in expect}, first_step=steps[0], last_step=steps[-1],
+          bn_per_step=per_step)
     return {"launches": launches}
 
 
@@ -919,6 +974,81 @@ def phase_bn_kernel(device: torch.device) -> dict:
     return record
 
 
+def _record_bn_launches(run) -> list:
+    """Calls `run()` with fused_bn's K6–K8 wrappers replaced by recorders that
+    note each call's (kernel, shape, dtype, activation, training) and pass it
+    on; the ABN functions look the wrappers up in fused_bn when they call
+    them. The package is not changed: the originals are put back."""
+    names = {"bn_act": "K6", "bn_grad_sums": "K7", "bn_grad_input": "K8"}
+    originals = {name: getattr(fused_bn, name) for name in names}
+    log = []
+
+    def recorder(name):
+        fn, sig = originals[name], inspect.signature(originals[name])
+
+        def record(*args, **kwargs):
+            a = sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            t = a.arguments.get("x", a.arguments.get("z"))
+            log.append((names[name], tuple(t.shape), t.dtype, a.arguments["activation"],
+                        a.arguments.get("training", True)))
+            return fn(*args, **kwargs)
+        # a wrapper counts its launches through its module-level name, the
+        # recorder while it stands there
+        record.launches = fn.launches
+        return record
+
+    try:
+        for name in names:
+            setattr(fused_bn, name, recorder(name))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            fn.launches = getattr(fused_bn, name).launches
+            setattr(fused_bn, name, fn)
+    return log
+
+
+def _bn_launch_sums(log: list, device: torch.device) -> dict:
+    """Per kernel of K6–K8 over the launches of `log` (one step or frame):
+    Σ launches × ms and Σ launches × bound_ms, each distinct (shape, dtype,
+    activation, training) timed once with cuda_median_ms on inputs from
+    _bn_case and bounded by phase 10's `card_bound` counts; the share of the
+    bound reached, and the call with the largest launches × (ms − bound)."""
+    sums = {}
+    for (kernel, shape, dtype, act, training), n in sorted(Counter(log).items(), key=str):
+        t = _bn_case(device, shape, dtype, act, 0)
+        numel, c = math.prod(shape), shape[1]
+        if kernel == "K6":
+            sc, sh = t["scale"]["train"], t["shift"]["train"]
+            ms = cuda_median_ms(lambda: bn_act(t["x"], sc, sh, act))
+            bound = card_bound(2 * t["x"].nbytes + 8 * c, 2 * numel)["bound_ms"]
+        elif kernel == "K7":
+            prm = (t["z"], t["dz"], t["gamma"], t["b"])
+            ms = cuda_median_ms(lambda: bn_grad_sums(*prm, act))
+            bound = card_bound(t["z"].nbytes + t["dz"].nbytes + 16 * c, 5 * numel)["bound_ms"]
+        else:
+            bwd = (t["z"], t["dz"], t["gamma"], t["b"], t["coef"], t["edz"], t["eydz"], act, 0.01)
+            ms = cuda_median_ms(lambda: bn_grad_input(*bwd, training))
+            bound = card_bound(t["z"].nbytes + 2 * t["dz"].nbytes + 20 * c,
+                               8 * numel)["bound_ms"]
+        del t
+        k = sums.setdefault(kernel, {"launches": 0, "shapes": 0, "ms": 0.0, "bound_ms": 0.0,
+                                     "worst": None})
+        k["launches"] += n
+        k["shapes"] += 1
+        k["ms"] += n * ms
+        k["bound_ms"] += n * bound
+        loss = n * (ms - bound)
+        if k["worst"] is None or loss > k["worst"]["lost_ms"]:
+            k["worst"] = {"shape": list(shape), "dtype": str(dtype)[6:], "activation": act,
+                          "launches": n, "ms": ms, "bound_ms": bound, "lost_ms": loss}
+    for k in sums.values():
+        k["bound_share"] = k["bound_ms"] / k["ms"]
+    return sums
+
+
 def _unfused_abn_ms(t: dict, where: str) -> dict:
     """The whole ABN, fused against the port's unfused one, on the same
     tensors: the eval normalisation (abn_fused_eval vs abn_normalize) and the
@@ -966,8 +1096,16 @@ def phase_eval_fused(device: torch.device, unfused: dict) -> dict:
             same += int((pred == plain_fn(x, lab, h, w)[0]).sum())
             total += pred.numel()
     agree = same / total
+    image, label, size, _ = frames[0]
+    x = torch.from_numpy(np.ascontiguousarray(image)).to(device).permute(0, 3, 1, 2).contiguous()
+    lab = torch.from_numpy(np.asarray(label[0]).astype(np.uint8)).to(device)
+    with torch.no_grad():
+        per_frame = _bn_launch_sums(_record_bn_launches(
+            lambda: fused_fn(x, lab, int(size[0][0]), int(size[0][1]))), device)
 
     check(math.isfinite(miou) and 0.0 <= miou <= 1.0, f"fused student mIoU {miou}")
+    check(per_frame["K6"]["launches"] == n_abn and set(per_frame) == {"K6"},
+          f"the recorded frame launched {({k: v['launches'] for k, v in per_frame.items()})}")
     check(int(conf.sum()) == sum(int((b[1] != 255).sum()) for b in frames),
           "fused student confusion count is off")
     check(launches["K6"] == n_abn * FRAMES,
@@ -979,7 +1117,7 @@ def phase_eval_fused(device: torch.device, unfused: dict) -> dict:
           abn_modules=n_abn, miou=miou, miou_unfused=miou_plain, class_map_agreement=agree,
           ms_per_frame=1e3 * took / FRAMES, unfused_ms_per_frame=unfused["ms_per_frame"],
           launches={"K1": launches["K1"], "K6": launches["K6"]}, max_memory_allocated=peak,
-          unfused_max_memory_allocated=unfused["max_memory_allocated"])
+          unfused_max_memory_allocated=unfused["max_memory_allocated"], bn_per_frame=per_frame)
     return {"launches": launches}
 
 
@@ -1114,6 +1252,10 @@ def main() -> int:
         "replaces": "structure_knowledge_distillation_tpu/ops/pallas_eval.py:87",
         "path": "eval",
         "launches": eval_stats["launches"],
+        "design": ("upsampled_argmax_kernel: a block per (image, low-res row interval, window of "
+                   "512 columns) stages the two low-res rows, interpolates along H once per row "
+                   "into class-minor pairs and along W once per pixel and class, keeping a "
+                   "running max whose first index wins"),
         # max_abs_err, for an argmax: the largest logit gap between the two
         # classes chosen where kernel and plain version disagree (0.0 where
         # they never do)

@@ -186,7 +186,7 @@ __device__ __forceinline__ float pixel_loss(const float2* vp, int ncols, int c, 
 //      head, in row and pixel order. Main and aux are two calls, not one
 //      loop over both heads: that spilled and ran slower on an H100.
 // A pixel whose first column tap is the last staged column has no second tap
-// and a second weight of exactly 0 (ops/upsampled_argmax.py tap_tables): the
+// and a second weight of exactly 0 (ops/taps.py tap_tables): the
 // pair's second value there is any finite staged value, and adds 0.
 // At the end a fixed tree reduces the block's sums and valid count into one
 // partial per block.
@@ -587,7 +587,7 @@ __global__ void ce_bwd_combine_kernel(const float* __restrict__ part,
 
 // The forward kernel's dynamic shared memory for windows that read at most
 // `ncols` low-res columns: the staged rows and their pairs along H, 4·c2·ncols
-// floats (ops/upsampled_ce.py::_fwd_smem_bytes mirrors it).
+// floats (ops/taps.py::window_smem_bytes mirrors it).
 int64_t fwd_smem_bytes(int c2, int ncols) { return 16 * static_cast<int64_t>(c2) * ncols; }
 
 // The pass-1 kernel's dynamic shared memory for `seg` cells and chunks of
@@ -611,7 +611,8 @@ bool bad_shape(int n, int c, int h_in, int w_in, int h_out, int w_out, int nhead
 // w_out) int32; row_start (h_in + 1,) int32: the high-res rows whose first
 // tap is each low-res row, [start[i], start[i+1]). px: high-res columns per
 // block, at most kFwdThreads·kFwdPx; ncols_max: the most low-res columns any
-// window of px columns reads (ops/upsampled_ce.py::_fwd_tiling), which sets
+// window of px columns reads (ops/upsampled_ce.py::_fwd_tiling, through
+// ops/taps.py::window_tiling), which sets
 // the dynamic shared memory (fwd_smem_bytes, opted in above 48 KB).
 // part_sums (2·nparts,) f32 and part_cnt (nparts,) int32 scratch with nparts
 // = n·h_in·ceil(w_out/px); out_sums (2,) f32, out_cnt (1,) int32, out_loss

@@ -50,9 +50,7 @@ _SIGNATURES = {
                    _c_float, _c_int, _c_int, _c_void_p],
     "skd_conv3x3": [*[_c_void_p] * 3, _c_int, *[_c_int] * 5, _c_void_p],
     "skd_conv3x3_wgmma": [*[_c_void_p] * 3, *[_c_int] * 5, _c_void_p],
-    "skd_upsampled_argmax": [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
-                             _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-                             _c_int, _c_int, _c_int, _c_void_p],
+    "skd_upsampled_argmax": [_c_void_p, _c_int, *[_c_void_p] * 6, *[_c_int] * 8, _c_void_p],
     "skd_upsampled_ce_fwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 11,
                              *[_c_int] * 7, _c_float, _c_int, _c_int, _c_void_p],
     "skd_upsampled_ce_bwd": [_c_void_p, _c_void_p, _c_int, _c_int, *[_c_void_p] * 13,

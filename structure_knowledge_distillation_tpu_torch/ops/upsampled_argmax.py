@@ -16,19 +16,22 @@ as in torch and jnp argmax.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
-from structure_knowledge_distillation_tpu_torch.ops.resize import (
-    _interp_matrix_np,
-    resize_bilinear_align_corners,
+from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.taps import (
+    SMEM_MAX,
+    _device_intervals,
+    _device_tables,
+    tap_tables,
+    window_tiling,
 )
 
 __all__ = ["upsampled_argmax", "upsampled_argmax_plain", "tap_tables"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PX = 512  # high-res columns per block: csrc/upsampled_argmax.cu's 256 threads
+# (kThreads), 2 pixels each (kPx)
 
 
 def upsampled_argmax_plain(logits: torch.Tensor, out_size: tuple[int, int]) -> torch.Tensor:
@@ -39,26 +42,10 @@ def upsampled_argmax_plain(logits: torch.Tensor, out_size: tuple[int, int]) -> t
     return up.argmax(dim=1).to(torch.int32)
 
 
-def tap_tables(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
-    """Per-output-sample (lo, hi) source taps and their weights, as (2, n_out)
-    int32 and float32 arrays: the first and last non-zero entry of each row of
-    the align-corners matrix, so the weights equal its entries bit for bit.
-    Where a row has one non-zero entry (the last sample, an integral source
-    position, a 1-sample axis) lo == hi and the high weight is 0."""
-    a = _interp_matrix_np(n_in, n_out)
-    nz = a != 0
-    lo = nz.argmax(axis=1)
-    hi = n_in - 1 - nz[:, ::-1].argmax(axis=1)
-    rows = np.arange(n_out)
-    w_hi = np.where(hi != lo, a[rows, hi], np.float32(0.0))
-    return (np.stack([lo, hi]).astype(np.int32),
-            np.stack([a[rows, lo], w_hi]).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=32)
-def _device_tables(n_in: int, n_out: int, device: torch.device):
-    idx, wt = tap_tables(n_in, n_out)
-    return torch.from_numpy(idx).to(device), torch.from_numpy(wt).to(device)
+def _tiling(c: int, w_in: int, w_out: int) -> tuple[int, int]:
+    """(px, ncols) of the kernel: high-res columns per block and the most
+    low-res columns a window reads (`taps.window_tiling`, from _PX)."""
+    return window_tiling(c, w_in, w_out, _PX, SMEM_MAX, "the argmax kernel")
 
 
 def upsampled_argmax(logits: torch.Tensor, out_size: tuple[int, int]) -> torch.Tensor:
@@ -66,7 +53,9 @@ def upsampled_argmax(logits: torch.Tensor, out_size: tuple[int, int]) -> torch.T
 
     logits: (N, C, h, w) float32 or bfloat16, contiguous; the interpolation
     runs in f32. A CPU tensor takes `upsampled_argmax_plain`; a CUDA tensor
-    launches the kernel or raises.
+    launches the kernel or raises (ValueError, before launch, past about
+    7200 classes: a block then cannot hold the two low-res columns a pixel
+    reads).
     """
     if logits.dim() != 4:
         raise ValueError(f"expected (N, C, h, w) logits, got shape {tuple(logits.shape)}")
@@ -85,19 +74,22 @@ def upsampled_argmax(logits: torch.Tensor, out_size: tuple[int, int]) -> torch.T
     if n * c * h_in * w_in == 0:
         raise ValueError(f"empty logits {tuple(logits.shape)}")
 
+    px, ncols = _tiling(c, w_in, w_out)  # a class count no block holds raises here
+
     from structure_knowledge_distillation_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()
-    row_idx, row_wt = _device_tables(h_in, h_out, logits.device)
-    col_idx, col_wt = _device_tables(w_in, w_out, logits.device)
-    out = torch.empty((n, h_out, w_out), dtype=torch.int32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
+    dev = logits.device
+    row_idx, row_wt = _device_tables(h_in, h_out, dev)
+    col_idx, col_wt = _device_tables(w_in, w_out, dev)
+    row_start = _device_intervals(h_in, h_out, dev)
+    out = torch.empty((n, h_out, w_out), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.skd_upsampled_argmax(
-            logits.data_ptr(), _DTYPE_CODES[logits.dtype],
-            row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
-            col_wt.data_ptr(), out.data_ptr(), n, c, h_in, w_in, h_out, w_out,
-            stream)
+            logits.data_ptr(), _DTYPE_CODES[logits.dtype], row_idx.data_ptr(),
+            row_wt.data_ptr(), col_idx.data_ptr(), col_wt.data_ptr(), row_start.data_ptr(),
+            out.data_ptr(), n, c, h_in, w_in, h_out, w_out, px, ncols, stream)
     if err != 0:
         raise RuntimeError(f"upsampled_argmax kernel launch failed: cudaError {err}")
     upsampled_argmax.launches += 1

@@ -27,9 +27,13 @@ import numpy as np
 import torch
 
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
-from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
+from structure_knowledge_distillation_tpu_torch.ops.taps import (
+    SMEM_MAX as _SMEM_MAX,
+    _device_intervals,
     _device_tables,
-    tap_tables,
+    tap_intervals,
+    window_smem_bytes as _fwd_smem_bytes,
+    window_tiling,
 )
 
 __all__ = [
@@ -47,7 +51,6 @@ _FWD_PX = 512  # high-res columns per forward block: csrc/upsampled_ce.cu's 256
 _BWD_PX = 128  # pixels per chunk of the backward's softmax buffer: with 2 heads,
 # one thread per (pixel, head) of csrc/upsampled_ce.cu's 256 (kBwdThreads)
 _BWD_SMEM_SOFT = 64 * 1024  # keeps several backward blocks on an SM
-_SMEM_MAX = 227 * 1024  # the H100's dynamic shared memory per block
 _FWD_SMEM_MAX = _SMEM_MAX - 3 * 4 * 256  # less the forward's static reduction buffers
 
 
@@ -84,54 +87,10 @@ def upsampled_ce_loss_dsn_plain(logits: torch.Tensor, aux_logits: torch.Tensor,
             + dsn_weight * upsampled_ce_loss_plain(aux_logits, labels, out_size, ignore_index))
 
 
-def tap_intervals(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in + 1,) int32 offsets: the output samples whose first tap is input
-    sample j are [start[j], start[j+1]), the interval (a row) that one block
-    of the forward or backward walks, or the cell (a column) of the
-    backward. The first tap is monotone
-    in the output index and the second is the first or the one after it
-    (both checked), so each output sample of interval j reads only inputs j
-    and j + 1, and its weight on j + 1 is 0 where it has no second tap."""
-    idx, _ = tap_tables(n_in, n_out)
-    lo, hi = idx.astype(np.int64)
-    if (np.diff(lo) < 0).any() or not ((hi == lo) | (hi == lo + 1)).all():
-        raise AssertionError(f"taps of {n_in} -> {n_out} are not monotone adjacent pairs")
-    return np.searchsorted(lo, np.arange(n_in + 1), side="left").astype(np.int32)
-
-
-@functools.lru_cache(maxsize=32)
-def _device_intervals(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(tap_intervals(n_in, n_out)).to(device)
-
-
-def _fwd_smem_bytes(c_all: int, ncols: int) -> int:
-    """The forward kernel's dynamic shared memory: rows i and i + 1 of ncols
-    low-res columns of every channel, staged, and their H interpolation as
-    pairs (V[col], V[col+1]), 4·c_all·ncols words (csrc/upsampled_ce.cu
-    fwd_smem_bytes)."""
-    return 16 * c_all * ncols
-
-
-@functools.lru_cache(maxsize=32)
 def _fwd_tiling(c_all: int, w_in: int, w_out: int) -> tuple[int, int]:
-    """(px, ncols) of the forward: high-res columns per block,
-    halved from _FWD_PX while the low-res columns that the widest window of px
-    columns reads (ncols) overfill the block's shared memory. Raises
-    ValueError where even a one-column window does not fit."""
-    (lo, hi), _ = tap_tables(w_in, w_out)
-
-    def widest(px: int) -> int:
-        x0 = np.arange(0, w_out, px)
-        return int((hi[np.minimum(x0 + px, w_out) - 1] - lo[x0]).max()) + 1
-
-    px = _FWD_PX
-    while px > 1 and _fwd_smem_bytes(c_all, widest(px)) > _FWD_SMEM_MAX:
-        px //= 2
-    ncols = widest(px)
-    if _fwd_smem_bytes(c_all, ncols) > _FWD_SMEM_MAX:
-        raise ValueError(f"{c_all} channels are too many for the CE forward kernel "
-                         f"({_fwd_smem_bytes(c_all, ncols)} bytes of shared memory per block)")
-    return px, ncols
+    """(px, ncols) of the forward: high-res columns per block and the most
+    low-res columns a window reads (`taps.window_tiling`, from _FWD_PX)."""
+    return window_tiling(c_all, w_in, w_out, _FWD_PX, _FWD_SMEM_MAX, "the CE forward kernel")
 
 
 def _bwd_smem_bytes(c_all: int, w_in: int, seg: int, px: int) -> int:

@@ -3,7 +3,8 @@ mode on the CPU, with the cases and criteria of tests/test_pallas_eval.py.
 
 On CPU tensors the wrapper takes `upsampled_argmax_plain`. The CUDA kernel
 itself is compared with that plain version on the card by
-tests/test_torch_port_cuda.py and chip_smoke.py.
+tests/test_torch_port_cuda.py and chip_smoke.py; its tiling (row intervals
+and column windows, host tables) is checked here.
 A mismatch is allowed only where the two chosen classes tie within 1e-5
 (the order of float operations differs between the two paths).
 """
@@ -15,7 +16,15 @@ import torch
 
 from structure_knowledge_distillation_tpu.ops.pallas_eval import upsampled_argmax as jax_argmax
 from structure_knowledge_distillation_tpu.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.taps import (
+    SMEM_MAX,
+    tap_intervals,
+    tap_tables,
+    window_smem_bytes,
+)
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
+    _PX,
+    _tiling,
     upsampled_argmax,
     upsampled_argmax_plain,
 )
@@ -106,3 +115,46 @@ def test_wrapper_rejects_bad_input(bad, err):
     with pytest.raises(err):
         upsampled_argmax(bad, (8, 8))
 
+
+# (N, C, h, w) -> (H, W): the K1 cases of tests/test_torch_port_cuda.py (the
+# eval path's shape among them), chip_smoke.py phase 3's 512² case, and
+# (px, ncols) where a case sets them
+@pytest.mark.parametrize("shape,out,expect", [
+    ((1, 5, 7, 11), (37, 53), None),
+    ((2, 19, 13, 17), (100, 130), None),
+    ((1, 3, 1, 9), (5, 64), None),
+    ((1, 4, 6, 6), (1, 1), (512, 1)),
+    ((1, 19, 129, 257), (1024, 2048), (512, 65)),  # the eval path: 4 windows
+    ((1, 5, 40, 40), (17, 23), (512, 40)),         # downsampled: one window of every column
+    ((3, 7, 19, 23), (101, 157), None),
+    ((1, 200, 9, 129), (40, 512), (256, 65)),      # 200 classes: windows halved
+    ((2, 19, 65, 65), (512, 512), (512, 65)),
+])
+def test_argmax_tiling_fits_the_card(shape, out, expect):
+    """Every window of px output columns reads at most ncols low-res columns,
+    whose staged rows and pairs fit the block's shared memory, and the next
+    wider window would not; the row intervals hold every output row once,
+    in the interval of its first row tap."""
+    _, c, h_in, w_in = shape
+    px, ncols = _tiling(c, w_in, out[1])
+    assert 1 <= px <= _PX and 1 <= ncols <= w_in
+    assert window_smem_bytes(c, ncols) <= SMEM_MAX
+    (lo, hi), _ = tap_tables(w_in, out[1])
+    reads = [hi[min(x0 + px, out[1]) - 1] - lo[x0] + 1 for x0 in range(0, out[1], px)]
+    assert max(reads) == ncols
+    if px < _PX:
+        wider = [hi[min(x0 + 2 * px, out[1]) - 1] - lo[x0] + 1
+                 for x0 in range(0, out[1], 2 * px)]
+        assert window_smem_bytes(c, max(wider)) > SMEM_MAX
+    start = tap_intervals(h_in, out[0])
+    assert start[0] == 0 and start[-1] == out[0] and (np.diff(start) >= 0).all()
+    (row_lo, _), _ = tap_tables(h_in, out[0])
+    owner = np.repeat(np.arange(h_in), np.diff(start))
+    assert np.array_equal(owner, row_lo)
+    if expect is not None:
+        assert (px, ncols) == expect
+
+
+def test_argmax_tiling_refuses_what_no_block_holds():
+    with pytest.raises(ValueError, match="20000 channels"):
+        _tiling(20000, 65, 512)

@@ -8,7 +8,8 @@ kernel has no CPU mode. On a GPU host:
 The file imports only the port, so it runs where the JAX package's
 dependencies are missing. K1 (`upsampled_argmax`) may disagree with its plain
 version only where the two chosen classes tie within 1e-5: the two sum the
-same two-tap products in another order.
+same two-tap products in another order. Against a tap-by-tap oracle that
+rounds as the kernel does, its class map is equal bit for bit.
 
 K2–K5 (`upsampled_ce_loss[_dsn]`, forward and backward) against their plain
 versions: the loss to a relative 1e-5 and the low-res gradients to 1e-4 of
@@ -42,6 +43,7 @@ from structure_knowledge_distillation_tpu_torch.ops import ABN, fused_bn
 from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import abn_fused_train
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.taps import tap_tables
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
     upsampled_argmax_plain,
@@ -63,20 +65,47 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape,out", [
+# K1's cases, (N, C, h, w) -> (H, W); tests/test_torch_port_argmax.py checks
+# the kernel's tiling of each on the CPU
+K1_CASES = [
     ((1, 5, 7, 11), (37, 53)),      # ragged: no multiple of anything
     ((2, 19, 13, 17), (100, 130)),
     ((1, 3, 1, 9), (5, 64)),        # one-row input: lo == hi everywhere
     ((1, 4, 6, 6), (1, 1)),         # one output sample
     ((1, 19, 129, 257), (1024, 2048)),  # the eval path's shape
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("quantised", [False, True])
-def test_upsampled_argmax_matches_plain(cuda_device, shape, out, dtype, quantised):
+    ((1, 5, 40, 40), (17, 23)),     # downsampled: empty row intervals, one wide window
+    ((3, 7, 19, 23), (101, 157)),   # batch 3, ragged
+    ((1, 200, 9, 129), (40, 512)),  # 200 classes: windows halved to 256 columns
+]
+
+
+def _k1_input(shape, dtype, quantised, device):
     vals = np.random.RandomState(9).randn(*shape).astype(np.float32)
     if quantised:  # coarse grid: many exact ties after interpolation
         vals = np.round(vals * 2.0) / 2.0
-    x = torch.from_numpy(vals).to(cuda_device, dtype)
+    return torch.from_numpy(vals).to(device, dtype)
+
+
+def _tapwise_argmax(x, out):
+    """K1's arithmetic tap by tap, as separate torch operations on the card:
+    the two row taps of each output row interpolated along H, then the two
+    column taps along W (each product and each sum its own kernel, so each is
+    rounded on its own: eager torch contracts nothing into an FMA), then the
+    first-index argmax over classes."""
+    n, c, h_in, w_in = x.shape
+    (ylo, yhi), (wy0, wy1) = (torch.from_numpy(a).to(x.device) for a in tap_tables(h_in, out[0]))
+    (xlo, xhi), (wx0, wx1) = (torch.from_numpy(a).to(x.device) for a in tap_tables(w_in, out[1]))
+    xf = x.float()
+    v = xf[:, :, ylo.long()] * wy0[:, None] + xf[:, :, yhi.long()] * wy1[:, None]
+    u = v[..., xlo.long()] * wx0 + v[..., xhi.long()] * wx1
+    return u.argmax(dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape,out", K1_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantised", [False, True])
+def test_upsampled_argmax_matches_plain(cuda_device, shape, out, dtype, quantised):
+    x = _k1_input(shape, dtype, quantised, cuda_device)
     before = upsampled_argmax.launches
     ours = upsampled_argmax(x, out)
     assert upsampled_argmax.launches == before + 1
@@ -89,6 +118,17 @@ def test_upsampled_argmax_matches_plain(cuda_device, shape, out, dtype, quantise
         up = resize_bilinear_align_corners(x.float(), out)
         gap = (up.gather(1, ours.long()[:, None]) - up.gather(1, ref.long()[:, None]))[:, 0]
         assert gap[diff].abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("shape,out", K1_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantised", [False, True])
+def test_upsampled_argmax_equals_tapwise_oracle(cuda_device, shape, out, dtype, quantised):
+    """The kernel interpolates in the oracle's order with the same roundings,
+    so the class maps are equal everywhere, quantised ties included."""
+    x = _k1_input(shape, dtype, quantised, cuda_device)
+    ours = upsampled_argmax(x, out)
+    assert torch.equal(ours, _tapwise_argmax(x, out))
 
 
 def test_upsampled_argmax_first_index_on_exact_ties(cuda_device):
@@ -105,6 +145,8 @@ def test_upsampled_argmax_wrapper_checks(cuda_device):
         upsampled_argmax(x.half(), (16, 16))
     before = upsampled_argmax.launches
     upsampled_argmax(x.cpu(), (16, 16))  # a CPU tensor takes the plain version
+    with pytest.raises(ValueError, match="channels"):  # no block holds one column
+        upsampled_argmax(torch.zeros(1, 20000, 2, 65, device=cuda_device), (4, 512))
     assert upsampled_argmax.launches == before
 
 

@@ -6,7 +6,9 @@ Drives the port's main paths on the card, in phases: the whole-image eval
 path (`training/evaluate.py::evaluate_main`) at Cityscapes full resolution,
 the Pi+Pa+Ho distillation train step (`training/trainer.py::KDTrainer.fit`)
 at the reference recipe, both again with the fused ABN (`bn_fused=True`,
-kernels K6–K8), and the conv3x3 probe (K9). Each phase prints one line and
+kernels K6–K8), the conv3x3 probe (K9), and the whole training run through
+the train CLI from Cityscapes-shaped frames on disk (loader workers,
+prefetch, checkpoints, SIGTERM and resume). Each phase prints one line and
 any failure ends the run with a non-zero exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
@@ -81,7 +83,26 @@ any failure ends the run with a non-zero exit:
      1e-5) and a ragged bf16 case must run the direct kernel. Each case prints
      its route, ms, plain_ms, library_ms (one F.conv2d), bound_ms, what sets
      the bound and the share of it reached; the wgmma kernel's ptxas report
-     must show no spill.
+     must show no spill;
+ 15. train_cityscapes: the real training run through `cli.train.main` on a
+     fake Cityscapes tree written from a seed (16 train and 2 val frames at
+     1024×2048, PNGs that decode like real frames), with a seeded R101
+     teacher saved as a `.pth` and passed as --T_ckpt_path: random scale
+     and mirror in the native augmentation, 4 spawned loader workers, the
+     decode cache, batch 8, 512² crops, bf16, Pi+Pa+Ho, wgan-gp, the bf16 +
+     uint8 wire through the pinned-memory prefetch, 6 steps with an eval
+     every 2. Leg 1 is sent SIGTERM after step 3: it must return with the
+     full state saved at step 3, `model_best.pth.tar` and the step-2 cadence
+     snapshot written, the SIGTERM handler restored and no worker process
+     left. Leg 2 (--S_resume true, no explicit student checkpoint, so the
+     auto-resume stream) must train exactly steps 4–6 with finite losses and
+     one K4 and one K5 launch per step. A fresh student must load
+     `model_best.pth.tar` strictly and score on the val frames exactly the
+     mIoU logged for it. Prints the host loader's images/s (numpy vs native,
+     serial vs 4 workers, no, cold and warm cache), the H2D time of one batch
+     (pageable f32 vs pinned bf16 + uint8 on a side stream), leg 2's step
+     times, and each checkpoint's save ms and size, with the card's name and
+     power limit.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -96,19 +117,33 @@ from __future__ import annotations
 
 import inspect
 import json
+import logging
 import math
+import multiprocessing
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from structure_knowledge_distillation_tpu_torch.cli import train as train_cli
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
-from structure_knowledge_distillation_tpu_torch.data import SyntheticSegDataset, batch_iterator
+from structure_knowledge_distillation_tpu_torch.data import (
+    CityscapesDataset,
+    SyntheticSegDataset,
+    batch_iterator,
+    cast_batches,
+    make_cityscapes_lists,
+    warm_cache,
+)
 from structure_knowledge_distillation_tpu_torch.models import (
     BASIC,
     BOTTLENECK,
@@ -147,6 +182,7 @@ from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
     upsampled_ce_loss_dsn_plain,
     upsampled_ce_loss_plain,
 )
+from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.evaluate import (
     evaluate_main,
     make_fast_val_fn,
@@ -180,6 +216,7 @@ CE_FWD_SPEEDUP_MIN = 10.0  # K4 against its plain version, bf16, 5 % ignored
 CE_BWD_SPEEDUP_MIN = 4.0  # K5 against its plain version, bf16, 5 % ignored
 TRAIN_SHAPE = (8, NUM_CLASSES, 65, 65)
 TRAIN_CROP = (512, 512)
+TRAIN_BATCH = 8
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # GPU vs CPU train step in f32 with TF32 off: the one-step envelope of the
 # CPU parity tests (tests/test_torch_port_train_step.py)
@@ -203,6 +240,13 @@ CONV_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 CONV_SPEEDUP_MIN = 10.0  # the wgmma kernel against the direct one, same shape
 # H100 SXM peaks (NVIDIA's data sheet, dense, at a 700 W limit): device
 # memory, bf16 tensor cores, f32 outside the tensor cores
+# phase 15: fake 1024×2048 Cityscapes frames (train, val) through the train
+# CLI with 4 loader workers; leg 1 is sent SIGTERM after step 3 of 6, leg 2
+# resumes; the worker-pool loader rates count 8 batches
+CS_FRAMES = (("train", 16), ("val", 2))
+CS_WORKERS = 4
+CS_STEPS, CS_EVAL_EVERY, CS_SIGTERM_AFTER = 6, 2, 3
+CS_LOADER_BATCHES = 8
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
 
@@ -294,7 +338,8 @@ def randomize_affine(model: torch.nn.Module, seed: int) -> None:
                 p.copy_(0.1 * torch.randn(p.shape, generator=g))
 
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """Phase 1; returns nvidia-smi's name and power limit line."""
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false: this smoke run needs a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -307,6 +352,7 @@ def phase_device() -> None:
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
+    return smi_line
 
 
 def ptxas_report() -> list:
@@ -623,7 +669,7 @@ def phase_ce_kernel(device: torch.device) -> dict:
 
 
 def _train_config(**overrides) -> TrainConfig:
-    kwargs = dict(data_set="synthetic", classes_num=NUM_CLASSES, batch_size=8,
+    kwargs = dict(data_set="synthetic", classes_num=NUM_CLASSES, batch_size=TRAIN_BATCH,
                   input_size=TRAIN_CROP, compute_dtype="bfloat16", pi=True, pa=True, ho=True,
                   adv_loss_type="wgan-gp", device="cuda", log_every=1)
     kwargs.update(overrides)
@@ -1228,8 +1274,270 @@ def phase_conv3x3_probe(device: torch.device) -> dict:
     return record
 
 
+def write_fake_cityscapes(root: str, frames=CS_FRAMES, size=FULL_RES, seed: int = 0) -> None:
+    """Cityscapes' tree under `root`, from a seed: `leftImg8bit/{split}/
+    {city}/*_leftImg8bit.png` frames of smooth BGR structure (a 17×33 field
+    upsampled bicubically) under noise of σ 12, so a frame's PNG decode costs
+    about what a real frame's does, and `gtFine/.../*_gtFine_labelIds.png`
+    labelIds 0..33 in blocks (a 17×33 draw upsampled nearest)."""
+    import cv2
+
+    h, w = size
+    jobs = [(split, i, k) for k, (split, i) in
+            enumerate((split, i) for split, n in frames for i in range(n))]
+
+    def write(job) -> None:
+        split, i, k = job
+        rng = np.random.default_rng((seed, k))
+        field = rng.uniform(0, 255, (17, 33, 3)).astype(np.float32)
+        image = cv2.resize(field, (w, h), interpolation=cv2.INTER_CUBIC)
+        image += rng.normal(0.0, 12.0, image.shape).astype(np.float32)
+        ids = rng.integers(0, 34, (17, 33)).astype(np.uint8)
+        label = cv2.resize(ids, (w, h), interpolation=cv2.INTER_NEAREST)
+        city = f"city{i % 2}"
+        stem = f"{city}_{i:06d}_000019"
+        for sub, suffix, arr in (("leftImg8bit", "leftImg8bit", np.clip(image, 0, 255)),
+                                 ("gtFine", "gtFine_labelIds", label)):
+            d = os.path.join(root, sub, split, city)
+            os.makedirs(d, exist_ok=True)
+            check(cv2.imwrite(os.path.join(d, f"{stem}_{suffix}.png"), arr.astype(np.uint8)),
+                  f"cv2.imwrite failed under {d}")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def _loader_rates(root: str, train_list: str, work: str) -> tuple:
+    """Host images/s of the train loader at the run's crop and batch: serial
+    (numpy and native augmentation; no cache, a cold cache, a warm one) over
+    one batch, and `CS_WORKERS` workers (native; no cache, a warm cache)
+    over `CS_LOADER_BATCHES` batches, counted from the batch that ends the
+    pool's first round (its start-up, `first_batch_seconds`, left out).
+    Returns (rows, the native serial loader's batch)."""
+    rows, sample = [], None
+    cache = os.path.join(work, "rate_cache")
+    for name, native, cache_dir in (("numpy, serial, no cache", False, None),
+                                    ("native, serial, no cache", True, None),
+                                    ("native, serial, cold cache", True, cache),
+                                    ("native, serial, warm cache", True, cache)):
+        ds = CityscapesDataset(root, train_list, crop_size=TRAIN_CROP, seed=0,
+                               use_native=native, cache_dir=cache_dir)
+        batches = batch_iterator(ds, TRAIN_BATCH, seed=0)
+        t0 = time.perf_counter()
+        batch = next(batches)
+        took = time.perf_counter() - t0
+        batches.close()
+        sample = batch if native and sample is None else sample
+        rows.append({"loader": name, "images": TRAIN_BATCH, "seconds": took,
+                     "images_per_second": TRAIN_BATCH / took})
+    warm_cache(CityscapesDataset(root, train_list, crop_size=TRAIN_CROP, cache_dir=cache))
+    for name, cache_dir in ((f"native, {CS_WORKERS} workers, no cache", None),
+                            (f"native, {CS_WORKERS} workers, warm cache", cache)):
+        ds = CityscapesDataset(root, train_list, max_iters=CS_LOADER_BATCHES * TRAIN_BATCH,
+                               crop_size=TRAIN_CROP, seed=0, cache_dir=cache_dir)
+        t0 = time.perf_counter()
+        arrived = []
+        for _ in batch_iterator(ds, TRAIN_BATCH, seed=0, num_workers=CS_WORKERS):
+            arrived.append(time.perf_counter())
+        counted = len(arrived) - CS_WORKERS
+        took = arrived[-1] - arrived[CS_WORKERS - 1]
+        rows.append({"loader": name, "images": counted * TRAIN_BATCH, "seconds": took,
+                     "images_per_second": counted * TRAIN_BATCH / took,
+                     "first_batch_seconds": arrived[0] - t0})
+    check(multiprocessing.active_children() == [], "the loader left worker processes behind")
+    return rows, sample
+
+
+def _copy_ms(fn, stream, trials: int = 5) -> float:
+    """Median device time of `fn()`'s copies, CUDA events on `stream`."""
+    times = []
+    for _ in range(trials + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        fn()
+        end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def _host_ms(fn, reps: int = 5) -> tuple:
+    """(median host ms of `fn()` over `reps` calls after a first one, its
+    last result)."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:]), out
+
+
+def _h2d(device: torch.device, batch: tuple) -> dict:
+    """One train batch host → device: the pageable f32 images and int32 labels
+    that `KDTrainer.fit` copied before (on the step's stream), against the
+    narrowed wire that `device_prefetch` moves (bf16 images, uint8 labels,
+    pinned, on a side stream). Host ms of the cast and the pinning beside
+    (medians; the first pinning also allocates the pinned block)."""
+    images, labels = torch.from_numpy(batch[0]), torch.from_numpy(batch[1])
+    current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+    pageable_ms = _copy_ms(lambda: (images.to(device), labels.to(device)), current)
+    cast_ms, narrow = _host_ms(
+        lambda: next(cast_batches(iter([(images, labels)]), torch.bfloat16, torch.uint8)))
+    pin_ms, pinned = _host_ms(lambda: [t.pin_memory() for t in narrow])
+
+    def side_copy():
+        with torch.cuda.stream(side):
+            for t in pinned:
+                t.to(device, non_blocking=True)
+
+    pinned_ms = _copy_ms(side_copy, side)
+    return {"pageable_f32_bytes": images.nbytes + labels.nbytes, "pageable_f32_ms": pageable_ms,
+            "pinned_narrow_bytes": sum(t.nbytes for t in pinned), "pinned_narrow_ms": pinned_ms,
+            "host_cast_ms": cast_ms, "host_pin_ms": pin_ms}
+
+
+class _SigtermAfter(logging.Handler):
+    """Sends this process SIGTERM when the trainer logs step `step`, as a
+    preemption notice that arrives mid-run."""
+
+    def __init__(self, step: int):
+        super().__init__()
+        self.step = step
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if str(record.msg).startswith("step:") and record.args and record.args[0] == self.step:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _scalars(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _timed_saves(saves: list):
+    """`checkpoint.save_torch` wrapped to record each file's ms and bytes."""
+    real = ckpt_io.save_torch
+
+    def save_torch(obj, path):
+        t0 = time.perf_counter()
+        out = real(obj, path)
+        saves.append({"file": os.path.relpath(path, os.path.dirname(os.path.dirname(path))),
+                      "ms": 1e3 * (time.perf_counter() - t0), "bytes": os.path.getsize(path)})
+        return out
+
+    return real, save_torch
+
+
+def phase_train_cityscapes(device: torch.device, card: str, synthetic_step_ms: float) -> dict:
+    """The train CLI on a fake Cityscapes tree, in two legs: leg 1 stops on a
+    SIGTERM after step `CS_SIGTERM_AFTER`, leg 2 resumes (`--S_resume true`,
+    no explicit student checkpoint, so the auto-resume stream) and trains
+    the steps left. Then a fresh student loads `model_best.pth.tar` strictly
+    and must reproduce the mIoU logged for it."""
+    trainer_log = logging.getLogger("structure_knowledge_distillation_tpu_torch.training.trainer")
+    with tempfile.TemporaryDirectory(prefix="skd_cityscapes_") as work:
+        root = os.path.join(work, "cityscapes")
+        t0 = time.perf_counter()
+        write_fake_cityscapes(root)
+        write_s = time.perf_counter() - t0
+        lists = make_cityscapes_lists(root, os.path.join(work, "list"))
+        rates, host_batch = _loader_rates(root, lists["train"], work)
+        h2d = _h2d(device, host_batch)
+
+        teacher = teacher_model(NUM_CLASSES, generator=torch.Generator().manual_seed(2))
+        randomize_bn_stats(teacher, 3)
+        teacher_path = os.path.join(work, "teacher.pth")
+        torch.save(teacher.state_dict(), teacher_path)
+        del teacher
+        snap = os.path.join(work, "snap")
+        common = ["--data-set", "cityscapes", "--data-dir", root,
+                  "--data-list", os.path.join(work, "dataset", "train.lst"),
+                  "--val-data-list", os.path.join(work, "dataset", "val.lst"),
+                  "--random-scale", "--random-mirror", "--num-workers", str(CS_WORKERS),
+                  "--decode-cache-dir", os.path.join(work, "cache"),
+                  "--batch-size", str(TRAIN_BATCH), "--input-size", "%d,%d" % TRAIN_CROP,
+                  "--T_ckpt_path", teacher_path, "--S_ckpt_path", "", "--snapshot-dir", snap,
+                  "--num-steps", str(CS_STEPS), "--eval-every", str(CS_EVAL_EVERY),
+                  "--log-every", "1", "--device", device.type]
+        saves: list = []
+        real_save, ckpt_io.save_torch = _timed_saves(saves)
+        sigterm = _SigtermAfter(CS_SIGTERM_AFTER)
+        prev_handler = signal.getsignal(signal.SIGTERM)
+        trainer_log.addHandler(sigterm)
+        try:
+            t0 = time.perf_counter()
+            train_cli.main(common + ["--log-path", os.path.join(work, "log1")])
+            leg1_s = time.perf_counter() - t0
+            trainer_log.removeHandler(sigterm)
+            check(signal.getsignal(signal.SIGTERM) == prev_handler,
+                  "fit did not restore the SIGTERM handler")
+            check(multiprocessing.active_children() == [], "leg 1 left worker processes behind")
+            leg1 = _scalars(os.path.join(work, "log1"))
+            latest = ckpt_io.latest_auto_resume(os.path.join(snap, "latest"))
+            check(latest is not None and latest.endswith(f"step_{CS_SIGTERM_AFTER:08d}.pth"),
+                  f"the newest auto-resume file is {latest}")
+            check(ckpt_io.load_torch_checkpoint(latest)[1]["state_step"] == CS_SIGTERM_AFTER,
+                  "the preemption save is not at the stopped step")
+            check(os.path.isfile(os.path.join(snap, "model_best.pth.tar")), "no model_best")
+            check(any(n.startswith(f"CS_scenes_{CS_EVAL_EVERY}_") and n.endswith(".pth")
+                      for n in os.listdir(snap)), "no cadence snapshot at the first eval")
+            check([r["step"] for r in leg1 if "g_loss" in r] == list(range(1, CS_SIGTERM_AFTER + 1)),
+                  f"leg 1 trained steps {[r['step'] for r in leg1 if 'g_loss' in r]}")
+
+            zero_counts()
+            t0 = time.perf_counter()
+            train_cli.main(common + ["--S_resume", "true", "--log-path", os.path.join(work, "log2")])
+            leg2_s = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            trainer_log.removeHandler(sigterm)
+            ckpt_io.save_torch = real_save
+        check(multiprocessing.active_children() == [], "leg 2 left worker processes behind")
+        leg2 = _scalars(os.path.join(work, "log2"))
+        steps = [r for r in leg2 if "g_loss" in r]
+        resumed = list(range(CS_SIGTERM_AFTER + 1, CS_STEPS + 1))
+        check([r["step"] for r in steps] == resumed, f"leg 2 trained steps {[r['step'] for r in steps]}")
+        for r in steps:
+            check(all(math.isfinite(v) for v in r.values()), f"a loss is not finite: {r}")
+        check(launches["K4"] == len(resumed) and launches["K5"] == len(resumed),
+              f"K4/K5 launched {launches['K4']}/{launches['K5']} times in {len(resumed)} steps")
+
+        sd, meta = ckpt_io.load_torch_checkpoint(os.path.join(snap, "model_best.pth.tar"))
+        student = student_model(NUM_CLASSES, device=device, dtype=torch.bfloat16)
+        skipped = ckpt_io.load_reference_state_dict(student, sd)
+        check(not skipped and sorted(sd) == sorted(student.state_dict()),
+              f"model_best does not load strictly: {skipped[:3]}")
+        val = CityscapesDataset(root, lists["val"], crop_size=FULL_RES, scale=False, mirror=False)
+        miou, _, _ = evaluate_main(student.eval(), batch_iterator(val, 1, shuffle=False),
+                                   NUM_CLASSES, out_size=FULL_RES)
+        logged = {r["step"]: r["val_mean_iu"] for r in leg1 + leg2 if "val_mean_iu" in r}
+        check(miou == logged.get(meta["step"]),
+              f"model_best (step {meta['step']}) scores {miou}, logged {logged}")
+
+        sizes = {os.path.relpath(os.path.join(d, n), snap): os.path.getsize(os.path.join(d, n))
+                 for d, _, names in os.walk(snap) for n in names}
+    walls = {r["step"]: r["wall_time"] for r in leg1 + leg2 if "g_loss" in r}
+    step_ms = {s: 1e3 * (walls[s] - walls[s - 1]) for s in resumed[1:]}
+    stats = {"card": card, "write_fake_frames_s": write_s, "loader": rates, "h2d": h2d,
+             "leg1_s": leg1_s, "leg2_s": leg2_s,
+             "leg2_step_ms": step_ms,  # step s: from step s-1's log to step s's, an eval at s-1 included
+             "leg2_images_per_second": {r["step"]: r["img_per_sec"] for r in steps},
+             "steady_step_ms": step_ms[CS_STEPS], "synthetic_step_ms_phase8": synthetic_step_ms,
+             "device_idle_share": "not measured",
+             "launches": {k: launches[k] for k in ("K1", "K4", "K5")},
+             "losses_last": {k: steps[-1][k] for k in ("g_loss", "d_loss", "mc_loss")},
+             "model_best_step": meta["step"], "model_best_miou": miou,
+             "saves": saves, "files": sizes}
+    phase(15, "train_cityscapes",
+          model="R101 teacher (.pth) -> R18 student, full width, bf16, from 1024x2048 frames",
+          frames={s: n for s, n in CS_FRAMES}, batch=TRAIN_BATCH, crop=list(TRAIN_CROP),
+          workers=CS_WORKERS, steps=CS_STEPS, sigterm_after=CS_SIGTERM_AFTER, **stats)
+    return stats
+
+
 def main() -> int:
-    phase_device()
+    card = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
@@ -1245,6 +1553,7 @@ def main() -> int:
     phase_train_gpu_vs_cpu(device, bn_fused=True)
     eval_fused = phase_eval_fused(device, eval_stats)
     k9 = phase_conv3x3_probe(device)
+    phase_train_cityscapes(device, card, train["ms_per_step"])
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",

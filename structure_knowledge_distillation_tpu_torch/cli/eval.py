@@ -95,7 +95,8 @@ def main(argv=None):
         ckpt_io.load_reference_state_dict(model, ckpt_io.load_torch_state_dict(args.resume_from))
     model.eval()
 
-    ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(out_h, out_w))
+    ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(out_h, out_w),
+                           scale=False, mirror=False)
     loader = batch_iterator(ds, 1, shuffle=False, drop_last=False)
     mean_iu, iu_array, _ = evaluate_main(
         model, loader, num_classes, out_size=(out_h, out_w), eval_type="val",

@@ -1,62 +1,164 @@
 """Training entry point — counterpart of reference train_and_eval.py.
 
     python -m structure_knowledge_distillation_tpu_torch.cli.train \
-        --data-set synthetic --batch-size 8 --num-steps 40000 \
+        --data-set cityscapes --data-dir ../cityscapes --random-scale --random-mirror \
+        --num-workers 4 --decode-cache-dir ./cache --batch-size 8 --num-steps 40000 \
         --T_ckpt_path ./ckpt/teacher.pth
 
 Counterpart of `structure_knowledge_distillation_tpu/cli/train.py`, with the
 same flags (see `config.py`) plus `--device` (default `cuda`; a host without
-CUDA needs `--device cpu`). Ported so far: `--data-set synthetic` (no files
-needed); the teacher loads from a `.pth` (`--T_ckpt_path`) and the student's
-ImageNet init from `--student-pretrain-model-imgnet`. Cityscapes, VOC and
-CamVid training raise: their train halves are ROADMAP Queue A items 6
-(Cityscapes augmentation and the prefetcher) and 7 (VOC, CamVid).
+CUDA needs `--device cpu`). Data sets: `cityscapes` (the train list at
+`--input-size` with the reference's augmentation, the val list at
+1024×2048; missing lists are generated from the tree) and `synthetic` (no
+files needed). VOC and CamVid are ROADMAP Queue A item 7 and raise.
+
+The teacher loads from a `.pth` (`--T_ckpt_path`), the student's ImageNet
+init from `--student-pretrain-model-imgnet`, the discriminator with
+`--D_resume true` from `--D_ckpt_path` (a state dict, or the `discriminator`
+of the port's `model_best.pth.tar`). `--S_resume true` resumes from
+`--S_ckpt_path` (a file, or its `model_best.pth.tar`), else from the newest
+auto-resume file in `<snapshot_dir>/latest`, and trains only the steps left
+of `--num-steps`. SIGTERM stops the run at the next step boundary with the
+full state saved there.
+
+Batches come from the host batcher (with `--num-workers` processes), are
+narrowed to bf16 images under bf16 compute and uint8 labels (unless
+`--wire-format f32`), and reach the device through `device_prefetch`.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import os
+from typing import Optional
+
+import torch
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
-from structure_knowledge_distillation_tpu_torch.data import SyntheticSegDataset, batch_iterator
+from structure_knowledge_distillation_tpu_torch.data import (
+    DATASET_EVAL_DEFAULTS,
+    CityscapesDataset,
+    SyntheticSegDataset,
+    batch_iterator,
+    cast_batches,
+    device_prefetch,
+    ensure_list,
+)
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
+from structure_knowledge_distillation_tpu_torch.utils import log_init, save_args
 
 log = logging.getLogger(__name__)
 
-DATASET_ITEM = ("training on {} is ROADMAP Queue A items 6 'Trainer and CLI' (Cityscapes "
-                "train half, prefetcher) and 7 'VOC/CamVid/ESPNet'; use --data-set synthetic")
+DATASET_ITEM = "training on {} is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 
 
 def build_datasets(cfg: TrainConfig):
-    if cfg.data_set != "synthetic":
+    """(train, val) datasets of `cfg.data_set`."""
+    if cfg.data_set == "synthetic":
+        train = SyntheticSegDataset(length=cfg.num_steps * cfg.batch_size,
+                                    crop_size=cfg.input_size, num_classes=cfg.classes_num,
+                                    seed=cfg.seed)
+        val = SyntheticSegDataset(length=2, crop_size=cfg.input_size,
+                                  num_classes=cfg.classes_num, seed=cfg.seed + 1)
+        return train, val
+    if cfg.data_set in ("voc", "camvid"):
         raise NotImplementedError(DATASET_ITEM.format(cfg.data_set))
-    train = SyntheticSegDataset(length=cfg.num_steps * cfg.batch_size,
-                                crop_size=cfg.input_size, num_classes=cfg.classes_num,
-                                seed=cfg.seed)
-    val = SyntheticSegDataset(length=2, crop_size=cfg.input_size,
-                              num_classes=cfg.classes_num, seed=cfg.seed + 1)
+    if cfg.data_set not in ("cityscapes", "cityscape"):
+        raise ValueError(f"unknown data_set {cfg.data_set!r}")
+    # reference-style default list paths (./dataset/list/cityscapes/train.lst)
+    # resolve by generating the lists from the dataset tree on first use
+    cfg.data_list = ensure_list(cfg.data_set, cfg.data_dir, cfg.data_list)
+    cfg.val_data_list = ensure_list(cfg.data_set, cfg.data_dir, cfg.val_data_list)
+    cache_dir = cfg.decode_cache_dir or None
+    train = CityscapesDataset(
+        cfg.data_dir, cfg.data_list, max_iters=cfg.num_steps * cfg.batch_size,
+        crop_size=cfg.input_size, scale=cfg.random_scale, mirror=cfg.random_mirror,
+        ignore_label=cfg.ignore_label, seed=cfg.seed, cache_dir=cache_dir)
+    val = CityscapesDataset(
+        cfg.data_dir, cfg.val_data_list, crop_size=DATASET_EVAL_DEFAULTS[cfg.data_set][0],
+        scale=False, mirror=False, ignore_label=cfg.ignore_label, cache_dir=cache_dir)
     return train, val
+
+
+def _resolve_snapshot(path: str, name: str = "model_best.pth.tar") -> Optional[str]:
+    """An explicit checkpoint file, or `model_best.pth.tar` inside a directory
+    (the reference resumes from `<ckpt_path>/model_best.pth.tar`,
+    utils/utils.py:109-110, :134-135)."""
+    if os.path.isfile(path):
+        return path
+    cand = os.path.join(path, name)
+    return cand if os.path.isdir(path) and os.path.isfile(cand) else None
+
+
+def load_initial_variables(cfg: TrainConfig):
+    """(teacher, student, discriminator) state dicts to start from; None
+    where there is nothing to load."""
+    teacher = student = disc = None
+    if cfg.T_ckpt_path:
+        teacher = ckpt_io.load_torch_state_dict(cfg.T_ckpt_path)
+        log.info("loaded teacher from %s", cfg.T_ckpt_path)
+    if cfg.D_resume:
+        # reference load_D_model (utils/utils.py:130-151): restore the GAN
+        # discriminator so a continued run keeps its adversarial state
+        path = _resolve_snapshot(cfg.D_ckpt_path)
+        if path is None:
+            log.info("D_resume: no checkpoint at %r", cfg.D_ckpt_path)
+        else:
+            sd, meta = ckpt_io.load_torch_checkpoint(path)
+            disc = meta.get("discriminator", sd)  # the port's model_best: its D
+            log.info("loaded discriminator from %s", path)
+    if cfg.is_student_load_imgnet and cfg.student_pretrain_model_imgnet:
+        student = ckpt_io.load_torch_state_dict(cfg.student_pretrain_model_imgnet)
+        log.info("loaded student ImageNet init from %s", cfg.student_pretrain_model_imgnet)
+    return teacher, student, disc
 
 
 def main(argv=None) -> float:
     cfg = TrainConfig.from_args(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    log_init(cfg.log_path, cfg.data_set)
     for key, val in vars(cfg).items():
         log.info("%s : %s", key, val)
+    save_args(cfg, os.path.join(cfg.log_path, "args.txt"))
 
     train_ds, val_ds = build_datasets(cfg)
-    teacher_state = (ckpt_io.load_torch_state_dict(cfg.T_ckpt_path)
-                     if cfg.T_ckpt_path else None)
-    student_state = None
-    if cfg.is_student_load_imgnet and cfg.student_pretrain_model_imgnet:
-        student_state = ckpt_io.load_torch_state_dict(cfg.student_pretrain_model_imgnet)
-    trainer = KDTrainer(cfg, teacher_state, student_state)
-    train_iter = batch_iterator(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed)
-    best = trainer.fit(train_iter,
-                       lambda: batch_iterator(val_ds, 1, shuffle=False, drop_last=False),
-                       eval_out_size=cfg.input_size)
+    trainer = KDTrainer(cfg, *load_initial_variables(cfg))
+    if cfg.S_resume:
+        snap = _resolve_snapshot(cfg.S_ckpt_path)
+        if snap is not None:
+            trainer.resume_from_snapshot(snap)
+        else:
+            trainer.try_resume()
+
+    host_batches = batch_iterator(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                  num_workers=cfg.num_workers)
+    # a resumed or offset run trains only the REMAINING budget: the reference
+    # loop is range(num_steps - last_step) after restoring (train_and_eval.py:
+    # 20-22); the dataset holds num_steps batches
+    host_iter = host_batches
+    if trainer.state.step:
+        host_iter = itertools.islice(host_batches, max(0, cfg.num_steps - trainer.state.step))
+    # narrow the host→device wire: bf16 images are what the model's first op
+    # makes of f32 ones; uint8 labels fit ≤ 254 classes + ignore 255
+    image_dtype = (torch.bfloat16 if cfg.wire_format != "f32" and cfg.compute_dtype == "bfloat16"
+                   else None)
+    label_dtype = (torch.uint8 if cfg.classes_num <= 254 and cfg.ignore_label <= 255
+                   and cfg.wire_format != "f32" else None)
+    train_iter = device_prefetch(cast_batches(host_iter, image_dtype, label_dtype), cfg.device)
+
+    def val_loader():
+        return batch_iterator(val_ds, 1, shuffle=False)
+
+    eval_out_size = (cfg.input_size if cfg.data_set == "synthetic"
+                     else DATASET_EVAL_DEFAULTS[cfg.data_set][0])
+    try:
+        best = trainer.fit(train_iter, val_loader, eval_out_size=eval_out_size)
+    finally:
+        # an early stop (SIGTERM) or the islice bound leaves the batcher
+        # suspended inside its worker pool: close both ends
+        train_iter.close()
+        host_batches.close()
     log.info("training done; best mean_IU %.4f", best)
     return best
 

@@ -6,12 +6,15 @@ spellings (reference utils/train_options.py:16-83), so reference-style
 command lines carry over. One field is the port's own: `device` (`--device`,
 default `cuda`; a host without CUDA needs `--device cpu`).
 
-Options of the JAX package that the port has not ported raise
-`NotImplementedError` naming their ROADMAP item when set to anything but
-their default; the reference's GPU-era flags (`--gpu`, `--parallel`,
-`--is-training`, `--recurrence`) stay accepted and ignored, and so do the
-TPU-only knobs that change no result (`stem_s2d`, whose parameters are the
-plain conv's; `wire_format` auto/f32, since the port moves images as f32).
+Resume (`S_resume`, `D_resume`, `last_step`), the loader workers
+(`num_workers`) and the decode cache (`decode_cache_dir`) are ported. Options
+of the JAX package that the port has not ported raise `NotImplementedError`
+naming their ROADMAP item when set to anything but their default; the
+reference's GPU-era flags (`--gpu`, `--parallel`, `--is-training`,
+`--recurrence`) stay accepted and ignored, and so does `stem_s2d`, a TPU
+layout whose parameters are the plain conv's. `wire_format` auto narrows the
+train batches to bf16 images (under bf16 compute) and uint8 labels, f32 keeps
+them as the dataset makes them; u8 raises.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 
 __all__ = ["TrainConfig", "str2bool"]
 
-_ITEM6 = "ROADMAP Queue A item 6 'Trainer and CLI'"
+_ITEM6C = "ROADMAP Queue A item 6c 'fewer host launches'"
 _ITEM7 = "ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 _ITEM8 = "ROADMAP Queue A item 8 'DDP'"
 _ITEM4 = "ROADMAP Queue A item 4 'msf/sliding/sharded eval'"
@@ -144,12 +147,8 @@ class TrainConfig:
     def _check_ported(self) -> None:
         """Raise for every option the port has not ported yet."""
         checks = (
-            (self.S_resume or self.D_resume or self.last_step,
-             f"resume (S_resume/D_resume/last_step) is {_ITEM6}"),
-            (self.unroll_steps > 1, f"unroll_steps > 1 (a multi-step device loop) is {_ITEM6}"),
-            (bool(self.profile_dir), f"the step profiler (profile_dir) is {_ITEM6}"),
-            (self.num_workers > 0 or bool(self.decode_cache_dir),
-             f"the train-data workers and decode cache are {_ITEM6}"),
+            (self.unroll_steps > 1, f"unroll_steps > 1 (a multi-step device loop) is {_ITEM6C}"),
+            (bool(self.profile_dir), f"the step profiler (profile_dir) is {_ITEM6C}"),
             (self.ohem, f"the OHEM task loss is {_ITEM7}"),
             (self.student_arch != "resnet18", f"the ESPNet student is {_ITEM7}"),
             (self.remat, f"--remat (torch.utils.checkpoint) is {_ITEM7}"),

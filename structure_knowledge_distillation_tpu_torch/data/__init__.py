@@ -1,3 +1,4 @@
+from structure_knowledge_distillation_tpu_torch.data.cache import cached_decode, warm_cache
 from structure_knowledge_distillation_tpu_torch.data.cityscapes import (
     IMG_MEAN_BGR,
     CityscapesDataset,
@@ -5,6 +6,8 @@ from structure_knowledge_distillation_tpu_torch.data.cityscapes import (
     id2trainid,
     trainid2id,
 )
+from structure_knowledge_distillation_tpu_torch.data.lists import ensure_list, make_cityscapes_lists
+from structure_knowledge_distillation_tpu_torch.data.prefetch import cast_batches, device_prefetch
 from structure_knowledge_distillation_tpu_torch.data.synthetic import SyntheticSegDataset
 
 # (eval resolution, default class count) per dataset, as in the JAX package:
@@ -23,7 +26,13 @@ __all__ = [
     "IMG_MEAN_BGR",
     "CityscapesDataset",
     "batch_iterator",
+    "cached_decode",
+    "cast_batches",
+    "device_prefetch",
+    "ensure_list",
     "id2trainid",
+    "make_cityscapes_lists",
     "trainid2id",
+    "warm_cache",
     "SyntheticSegDataset",
 ]

@@ -1,18 +1,21 @@
-"""Cityscapes val dataset (host side, numpy).
+"""Cityscapes train/val dataset and the host batcher (numpy).
 
-Counterpart of the val half of `structure_knowledge_distillation_tpu/data/
-cityscapes.py` (reference dataset/datasets.py:121-210):
+Counterpart of `structure_knowledge_distillation_tpu/data/cityscapes.py`
+(reference dataset/datasets.py:121-210):
   * `.lst` lines are "image_path<TAB>label_path" relative to the data root;
   * labels map labelId → trainId (34 → 19 + ignore 255);
-  * images are BGR with the reference mean subtracted, padded with 0 (labels
-    with ignore) up to the crop, then cropped at an offset drawn from a seeded
-    rng — the same draws as the JAX package, which are 0 when the crop equals
-    the frame (the val case).
+  * train augmentation: random scale f ∈ {0.7, 0.8, …, 2.1} (cv2 INTER_LINEAR
+    image, INTER_NEAREST label), BGR mean subtraction, zero/ignore padding up
+    to the crop, random crop, random horizontal flip; val: mean subtraction,
+    pad and crop only (the crop equals the frame, so its offsets are 0);
+  * every draw comes from the dataset's seeded `np.random.Generator` in the
+    JAX package's order, on the numpy path and on the native (C++) path
+    alike, so both packages make the same crops for the same seed.
 
 Samples stay HWC float32 / HW int32 numpy arrays, as in the JAX package; the
-eval loop moves them to the device and to NCHW there. Random scale and mirror
-are train-time augmentation and raise until the trainer slice. Images decode
-with cv2 when it is installed, else PIL, imported on first read.
+transpose to NCHW happens on the device. Images decode with cv2 when it is
+installed, else PIL (and so does the numpy path's resize); a decode cache
+(`data/cache.py`) can keep each decoded frame as an mmap'd .npy.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from structure_knowledge_distillation_tpu_torch.data.cache import cached_decode
+
 __all__ = [
     "IMG_MEAN_BGR",
     "ID_TO_TRAINID_LUT",
@@ -31,9 +36,6 @@ __all__ = [
     "CityscapesDataset",
     "batch_iterator",
 ]
-
-AUGMENTATION_ITEM = ("random scale/mirror augmentation is ROADMAP Queue A "
-                     "item 'trainer and CLI'")
 
 # BGR mean, reference train_and_eval.py:10 / evaluate.py:21.
 IMG_MEAN_BGR = np.array((104.00698793, 116.66876762, 122.67891434), dtype=np.float32)
@@ -64,12 +66,17 @@ def trainid2id(label: np.ndarray) -> np.ndarray:
     return _TRAINID_TO_ID_LUT[label]
 
 
-def _imread(path: str, gray: bool) -> np.ndarray:
-    """Decode to BGR uint8 (HWC) or gray uint8 (HW) with cv2, else PIL."""
+def _cv2():
     try:
         import cv2
     except ImportError:
-        cv2 = None
+        return None
+    return cv2
+
+
+def _imread(path: str, gray: bool) -> np.ndarray:
+    """Decode to BGR uint8 (HWC) or gray uint8 (HW) with cv2, else PIL."""
+    cv2 = _cv2()
     if cv2 is not None:
         img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
         if img is None:
@@ -83,6 +90,28 @@ def _imread(path: str, gray: bool) -> np.ndarray:
         if gray:
             return np.asarray(im.convert("L"))
         return np.ascontiguousarray(np.asarray(im.convert("RGB"))[:, :, ::-1])
+
+
+def _imread_color(path: str) -> np.ndarray:
+    return _imread(path, gray=False)
+
+
+def _imread_gray(path: str) -> np.ndarray:
+    return _imread(path, gray=True)
+
+
+def _resize(img: np.ndarray, fx: float, nearest: bool) -> np.ndarray:
+    """cv2.resize by the factor fx on both axes; PIL only without cv2."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        interp = cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR
+        return cv2.resize(img, None, fx=fx, fy=fx, interpolation=interp)
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    new = (int(round(w * fx)), int(round(h * fx)))
+    mode = Image.NEAREST if nearest else Image.BILINEAR
+    return np.asarray(Image.fromarray(img).resize(new, mode))
 
 
 @dataclass
@@ -111,35 +140,66 @@ def _parse_lst(root: str, list_path: str, with_labels: bool) -> list:
 
 
 class CityscapesDataset:
-    """Val dataset: mean subtraction, pad and crop (no augmentation)."""
+    """Train/val dataset with the reference's augmentation.
+
+    `max_iters` repeats the records up to at least that many samples (the
+    reference sizes its train set to num_steps × batch_size). `use_native`
+    takes the one-pass C++ augmentation (`data/native.py`, built on first
+    use; a failed build raises); `use_native=False` takes the numpy/cv2
+    path. The two agree in geometry and labels exactly and in pixel values
+    within cv2's fixed-point rounding (≤ 1). `cache_dir` keeps decoded frames
+    as .npy files (`data/cache.py`)."""
 
     def __init__(
         self,
         root: str,
         list_path: str,
+        max_iters: Optional[int] = None,
         crop_size: Tuple[int, int] = (512, 512),
         mean: np.ndarray = IMG_MEAN_BGR,
-        scale: bool = False,
-        mirror: bool = False,
+        scale: bool = True,
+        mirror: bool = True,
         ignore_label: int = 255,
         seed: int = 0,
+        use_native: bool = True,
+        cache_dir: Optional[str] = None,
     ):
-        if scale or mirror:
-            raise NotImplementedError(AUGMENTATION_ITEM)
         self.records = _parse_lst(root, list_path, with_labels=True)
+        if max_iters is not None and self.records:
+            reps = int(np.ceil(float(max_iters) / len(self.records)))
+            self.records = self.records * reps
         self.crop_h, self.crop_w = crop_size
         self.mean = np.asarray(mean, np.float32)
+        self.scale = scale
+        self.mirror = mirror
         self.ignore_label = ignore_label
+        self.cache_dir = cache_dir
         self.rng = np.random.default_rng(seed)
+        if use_native:
+            from structure_knowledge_distillation_tpu_torch.data.native import get_native_lib
+
+            get_native_lib()
+        self.use_native = use_native
 
     def __len__(self) -> int:
         return len(self.records)
 
+    def _read(self, path: str, gray: bool) -> np.ndarray:
+        return cached_decode(path, _imread_gray if gray else _imread_color, self.cache_dir)
+
     def __getitem__(self, index: int):
         rec = self.records[index]
-        image = _imread(rec.img, gray=False)
-        label = id2trainid(_imread(rec.label, gray=True))
+        image = self._read(rec.img, gray=False)
+        if self.use_native:
+            return self._getitem_native(rec, image)
+        label = id2trainid(self._read(rec.label, gray=True))
         size = np.array(image.shape)
+
+        if self.scale:
+            # f ∈ {0.7, 0.8, ..., 2.1} (reference datasets.py:157-161)
+            f = 0.7 + int(self.rng.integers(0, 15)) / 10.0
+            image = _resize(image, f, nearest=False)
+            label = _resize(label, f, nearest=True)
 
         image = image.astype(np.float32) - self.mean
         img_h, img_w = label.shape
@@ -154,12 +214,53 @@ class CityscapesDataset:
         w_off = int(self.rng.integers(0, img_w - self.crop_w + 1))
         image = image[h_off:h_off + self.crop_h, w_off:w_off + self.crop_w]
         label = label[h_off:h_off + self.crop_h, w_off:w_off + self.crop_w]
+
+        if self.mirror and bool(self.rng.integers(0, 2)):
+            image = image[:, ::-1]
+            label = label[:, ::-1]
+
         return (
             np.ascontiguousarray(image, np.float32),
             np.ascontiguousarray(label, np.int32),
             size,
             rec.name,
         )
+
+    def _getitem_native(self, rec, image: np.ndarray):
+        """One-pass C++ augmentation; the numpy path's draws in its order,
+        so both make the same geometry for a given seed."""
+        from structure_knowledge_distillation_tpu_torch.data.native import native_augment
+
+        raw_label = self._read(rec.label, gray=True)
+        size = np.array(image.shape)
+        f = 1.0
+        if self.scale:
+            f = 0.7 + int(self.rng.integers(0, 15)) / 10.0
+        # cv2's destination size: round half to even (augment.cpp:41-46)
+        new_h = int(round(image.shape[0] * f))
+        new_w = int(round(image.shape[1] * f))
+        img_h = max(new_h, self.crop_h)
+        img_w = max(new_w, self.crop_w)
+        h_off = int(self.rng.integers(0, img_h - self.crop_h + 1))
+        w_off = int(self.rng.integers(0, img_w - self.crop_w + 1))
+        flip = bool(self.rng.integers(0, 2)) if self.mirror else False
+        out_img, out_label = native_augment(
+            image, raw_label, f, (self.crop_h, self.crop_w), h_off, w_off,
+            flip, self.mean, ID_TO_TRAINID_LUT, self.ignore_label,
+        )
+        return out_img, out_label, size, rec.name
+
+
+_WORKER_DATASET = None
+
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_fetch(indices) -> list:
+    return [_WORKER_DATASET[int(i)] for i in indices]
 
 
 def _stack(samples) -> tuple:
@@ -171,13 +272,57 @@ def _stack(samples) -> tuple:
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = True) -> Iterator[tuple]:
-    """Serial host batcher producing stacked NHWC numpy batches, one pass in
-    a seeded shuffled order (the JAX batcher's order for the same seed)."""
+                   drop_last: bool = True, epochs: int = 1,
+                   num_workers: int = 0) -> Iterator[tuple]:
+    """Host batcher producing stacked NHWC numpy batches, in the JAX
+    batcher's order: one seeded rng reshuffles the order at the start of
+    every epoch.
+
+    `num_workers > 0` decodes and augments in that many spawned processes
+    (never forked: the trainer's process holds threads and a CUDA context),
+    the dataset shipped once through the pool's initializer, with up to
+    2 × num_workers batches in flight. Each worker holds its own copy of the
+    dataset and its rng, so augmentation draws differ from the serial order,
+    as with torch DataLoader workers and the JAX package's workers; the
+    batch order does not. Workers never touch CUDA. Closing the generator
+    (a consumer that stops early) cancels the batches not yet started and
+    shuts the pool down."""
+    rng = np.random.default_rng(seed)
     n = len(dataset)
-    order = np.arange(n)
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
     end = n - (n % batch_size) if drop_last else n
-    for start in range(0, end, batch_size):
-        yield _stack([dataset[int(i)] for i in order[start:start + batch_size]])
+
+    def index_batches():
+        for _ in range(epochs):
+            order = np.arange(n)
+            if shuffle:
+                rng.shuffle(order)
+            for start in range(0, end, batch_size):
+                yield order[start:start + batch_size]
+
+    if num_workers <= 0:
+        for idx in index_batches():
+            yield _stack([dataset[int(i)] for i in idx])
+        return
+
+    import collections
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(num_workers, initializer=_worker_init, initargs=(dataset,),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending: collections.deque = collections.deque()
+        try:
+            it = index_batches()
+            for idx in it:
+                pending.append(pool.submit(_worker_fetch, idx))
+                if len(pending) == 2 * num_workers:
+                    break
+            while pending:
+                samples = pending.popleft().result()
+                idx = next(it, None)
+                if idx is not None:
+                    pending.append(pool.submit(_worker_fetch, idx))
+                yield _stack(samples)
+        finally:
+            for fut in pending:
+                fut.cancel()

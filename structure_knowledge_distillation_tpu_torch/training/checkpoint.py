@@ -1,7 +1,8 @@
-"""Weights across the two packages and from the reference's `.pth` files.
+"""Weights across the two packages, the reference's `.pth` files, and the
+trainer's checkpoints.
 
-Counterpart of the torch-interop half of `structure_knowledge_distillation_tpu/
-training/checkpoint.py`. The port's `ResPSPNet` already uses the reference's
+Counterpart of `structure_knowledge_distillation_tpu/training/checkpoint.py`,
+in torch formats. The port's `ResPSPNet` already uses the reference's
 state-dict names, so:
   * `state_dict_from_jax` turns the JAX package's variable tree into that
     state dict (what its `export_torch_respspnet` returns, without flax);
@@ -11,22 +12,36 @@ state-dict names, so:
   * `load_reference_state_dict` merges a torch state dict into a model with
     the JAX importer's semantics: `module.` stripped, the released teachers'
     `head.0.*`/`head.1.*` remapped, `fc.*` and `num_batches_tracked` dropped,
-    and every other key taken only where the model has it at the same shape.
+    and every other key taken only where the model has it at the same shape;
+  * `load_torch_checkpoint` splits a `.pth[.tar]` into (state dict, meta), as
+    the JAX function of that name does;
+  * the trainer's files: `save_student_snapshot` (the reference's cadence
+    snapshot, a bare student state dict, with a `.json` sidecar of the JAX
+    package's meta keys), `save_torch` (atomic) and the auto-resume stream
+    `save_auto_resume` / `latest_auto_resume` (the counterpart of the JAX
+    package's Orbax directory: full-state files, the newest 3 kept).
 
-The port reads `.pth` files only; the JAX package's `.msgpack` checkpoints
-cross over as `export_torch_respspnet` dicts.
+Every save is synchronous: written to a temporary name, then renamed. The
+port reads and writes torch files only; a JAX `.msgpack` raises `ValueError`
+(cross over with the JAX `export_torch_respspnet` and `torch.save`).
+Every load keeps `weights_only=True`.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "discriminator_state_dict_from_jax",
-           "load_torch_state_dict", "load_reference_state_dict"]
+           "load_torch_state_dict", "load_torch_checkpoint", "load_reference_state_dict",
+           "load_meta", "save_torch", "save_student_snapshot", "save_auto_resume",
+           "latest_auto_resume"]
 
 log = logging.getLogger(__name__)
 
@@ -134,16 +149,100 @@ def _numpy_safe_globals() -> list:
     return out
 
 
-def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """Load a `.pth` state dict (or a `{"state_dict": ...}` checkpoint) onto
-    the CPU. Only tensors, plain containers and the numpy scalars and arrays
-    of a rich checkpoint's metadata are unpickled; any other object is
-    refused."""
+def _torch_load(path: str):
+    if str(path).endswith(".msgpack"):
+        raise ValueError(f"{path}: the port reads torch checkpoints (.pth, .pth.tar) only; "
+                         "convert a JAX .msgpack with export_torch_respspnet and torch.save")
     with torch.serialization.safe_globals(_numpy_safe_globals()):
-        obj = torch.load(path, map_location="cpu", weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """Load a `.pth[.tar]` onto the CPU as (state dict, meta): a rich
+    checkpoint's `state_dict` and its other entries (the reference's step /
+    best_mean_IU / IU_array, the port's full train state), or a bare state
+    dict and {}. Only tensors, plain containers and the numpy scalars and
+    arrays of a rich checkpoint's metadata are unpickled; any other object
+    is refused."""
+    obj = _torch_load(path)
+    meta: dict = {}
     if isinstance(obj, dict) and "state_dict" in obj:
+        meta = {k: v for k, v in obj.items() if k != "state_dict"}
         obj = obj["state_dict"]
-    return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}
+    return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}, meta
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a `.pth` (a bare one, or a `{"state_dict": ...}`
+    checkpoint's), on the CPU."""
+    return load_torch_checkpoint(path)[0]
+
+
+def _json_meta(meta: Mapping) -> dict:
+    """The JAX package's sidecar values: numbers as floats."""
+    return {k: float(v) if isinstance(v, (int, float, np.floating)) else v
+            for k, v in meta.items()}
+
+
+def load_meta(path: str) -> dict:
+    """The `.json` sidecar of a snapshot written by `save_student_snapshot`."""
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        return json.load(f)
+
+
+def save_torch(obj, path: str) -> str:
+    """`torch.save` to a temporary name in the same directory, then rename:
+    a reader never sees a half-written file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def save_student_snapshot(path: str, student_state: Mapping, **meta) -> str:
+    """The reference's cadence snapshot (kd_model.py:192-193): the student's
+    state dict alone at `path + ".pth"`, and the meta (the JAX
+    `save_student_state` keys: step, mean_iu, state_step) at `path + ".json"`."""
+    save_torch(dict(student_state), path + ".pth")
+    with open(path + ".json", "w") as f:
+        json.dump(_json_meta(meta), f)
+    return path + ".pth"
+
+
+_AUTO_RESUME = re.compile(r"step_(\d+)\.pth$")
+AUTO_RESUME_KEEP = 3  # the JAX package's Orbax max_to_keep
+
+
+def _auto_resume_steps(directory: str) -> Dict[int, str]:
+    if not os.path.isdir(directory):
+        return {}
+    found = (_AUTO_RESUME.fullmatch(name) for name in os.listdir(directory))
+    return {int(m.group(1)): os.path.join(directory, m.group(0)) for m in found if m}
+
+
+def save_auto_resume(directory: str, state: Mapping, step: int) -> str:
+    """Write `state` as `<directory>/step_<step>.pth` and keep the newest
+    `AUTO_RESUME_KEEP` files. Idempotent per step: a preemption save at the
+    step of an eval save finds the file there and writes nothing (the state
+    at one step is one state)."""
+    path = os.path.join(directory, f"step_{int(step):08d}.pth")
+    if not os.path.isfile(path):
+        save_torch(dict(state), path)
+    steps = _auto_resume_steps(directory)
+    for old in sorted(steps)[:-AUTO_RESUME_KEEP]:
+        os.unlink(steps[old])
+    return path
+
+
+def latest_auto_resume(directory: str) -> Optional[str]:
+    """The newest file of the auto-resume stream, or None."""
+    steps = _auto_resume_steps(directory)
+    return steps[max(steps)] if steps else None
 
 
 def _reference_key(key: str) -> Optional[str]:

@@ -10,8 +10,12 @@ added to the gradient before the momentum buffer and the update is −lr·buf,
 the rule of the JAX optax chain (`add_decayed_weights` + `sgd`,
 `train_state.py:40-48`). The lr follows the poly schedule
 lr·(remaining/num_steps)^power with an integer remainder, set on both
-optimizers before each update. `flat_sgd` is not ported (ROADMAP "Not
-ported": a TPU measure).
+optimizers before each update, from `KDTrainState.step`. So a run that
+starts at an offset (`last_step`, or a resumed checkpoint) sets `step` and
+the next update takes the lr the unbroken run would: the JAX package moves
+its optax schedule counts for that (`_set_schedule_count`), which the port
+needs no counterpart of. `flat_sgd` is not ported (ROADMAP "Not ported": a
+TPU measure).
 """
 
 from __future__ import annotations
@@ -53,8 +57,9 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 @dataclass
 class KDTrainState:
     """The frozen teacher, the student (G) and the discriminator (D) with
-    their optimizers and schedules; `step` counts the updates made, and the
-    next update's lr is `g_sched(step)` / `d_sched(step)`."""
+    their optimizers and schedules; `step` counts the updates made (from
+    `last_step` at construction), and the next update's lr is
+    `g_sched(step)` / `d_sched(step)`."""
 
     teacher: torch.nn.Module
     student: torch.nn.Module

@@ -56,7 +56,7 @@ __all__ = ["make_train_step", "make_train_loop"]
 OHEM_ITEM = "the OHEM task loss is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 LOOP_ITEM = ("multi-step device loops (unroll_steps > 1, CUDA-graph capture) are "
-             "ROADMAP Queue A item 6 'Trainer and CLI'")
+             "ROADMAP Queue A item 6c 'fewer host launches'")
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -75,9 +75,11 @@ def _use_fused_ce(cfg) -> bool:
 
 def make_train_step(cfg) -> Callable:
     """The train step for a TrainConfig: `train_step(state, images, labels,
-    generator=None, alpha=None)` takes (N, 3, H, W) float images and (N, H, W)
-    integer labels on the models' device, updates `state` in place and
-    returns its metrics."""
+    generator=None, alpha=None)` takes (N, 3, H, W) float images (f32, or
+    bf16 from the narrowed wire) and (N, H, W) integer labels (int32, or
+    uint8 from the wire, widened to int32 on the device first, as the JAX
+    step does) on the models' device, updates `state` in place and returns
+    its metrics."""
     if getattr(cfg, "ohem", False):
         raise NotImplementedError(OHEM_ITEM)
     if getattr(cfg, "student_arch", "resnet18") != "resnet18":
@@ -137,6 +139,7 @@ def make_train_step(cfg) -> Callable:
     def train_step(state: KDTrainState, images: torch.Tensor, labels: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    alpha: Optional[torch.Tensor] = None) -> Metrics:
+        labels = labels.to(torch.int32)
         teacher, student, disc = state.teacher, state.student, state.discriminator
         teacher.eval()
         student.train()

@@ -1,19 +1,42 @@
-"""KDTrainer — builds the models and optimizers, runs the train step and eval.
+"""KDTrainer — builds the models and optimizers, runs the train step, evaluates
+and checkpoints.
 
 Counterpart of `structure_knowledge_distillation_tpu/training/trainer.py`
 (reference networks/kd_model.py `NetModel` + the loop of
-train_and_eval.py:20-30): model and state construction from a `TrainConfig`,
-the per-step loop with metric logging every `log_every` steps, and the
-reference's `should_eval` cadence through the ported `evaluate_main`.
+train_and_eval.py:20-30): model and state construction from a `TrainConfig`
+(`last_step` offsets `state.step`), the per-step loop with metric logging
+every `log_every` steps (to the log and, with `log_path`, to
+`<log_path>/scalars.jsonl`), the reference's `should_eval` cadence through
+the ported `evaluate_main` with a checkpoint at every eval, resume, and a
+graceful stop on SIGTERM.
 
-Resume, SIGTERM handling, checkpoint saving, the profiler and the prefetcher
-are ROADMAP Queue A item 6 and not ported yet (the config raises for their
-options).
+Checkpoints, all torch files, written synchronously (`training/checkpoint.py`):
+  * `<snapshot_dir>/CS_scenes_{step}_{mIoU}.pth` (+ `.json` meta): the
+    student's state dict alone, the reference's cadence snapshot;
+  * `<S_ckpt_path>/model_best.pth.tar` (or in `snapshot_dir` when
+    `S_ckpt_path` is empty) at each new best: the reference's rich
+    checkpoint (`state_dict`, `step`, `best_mean_IU`) with the full train
+    state beside it (`discriminator`, `g_opt`, `d_opt`, `generator`,
+    `state_step`). The JAX package's `load_torch_checkpoint` reads it, and
+    its `resume_from_snapshot` takes the student's weights from it;
+  * `<snapshot_dir>/latest/step_{n}.pth`: the same full state at every eval
+    and at a preemption, the newest 3 kept (the JAX package's Orbax
+    directory); `try_resume` restores the newest.
+
+A full state restores a run exactly: the student and D (spectral-norm u/v
+and BatchNorm statistics included), both momentum buffers, `state.step` and
+the `torch.Generator` of the dropout masks and the GP α.
+
+The multi-step device loop (`unroll_steps > 1`) and the step profiler
+(`profile_dir`) are ROADMAP Queue A item 6c; the config raises for them.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import signal
+import threading
 import time
 from typing import Iterable, Mapping, Optional
 
@@ -23,6 +46,7 @@ import torch
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator
+from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt
 from structure_knowledge_distillation_tpu_torch.training.checkpoint import (
     load_reference_state_dict,
 )
@@ -33,6 +57,7 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
     poly_schedule,
 )
 from structure_knowledge_distillation_tpu_torch.training.train_step import make_train_step
+from structure_knowledge_distillation_tpu_torch.utils import MetricsWriter
 
 __all__ = ["KDTrainer"]
 
@@ -99,24 +124,59 @@ class KDTrainer:
                            cfg.weight_decay),
             g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
             d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power),
+            step=cfg.last_step,
         )
         self.train_step = make_train_step(cfg)
         # (step, {metric: float}) at every logged step
         self.history: list = []
+        # the best val mean IU so far: the config's, raised by resume and eval
+        self.best_mean_iu = cfg.best_mean_IU
+        self._preempt_requested = False
 
+    # ------------------------------------------------------------------ train
     def fit(self, train_iter: Iterable, val_loader=None, eval_out_size=(1024, 2048)) -> float:
-        """One train step per batch of `train_iter` ((images NHWC, labels NHW,
-        ...) numpy batches); logs every `log_every` steps and evaluates on
-        the `should_eval` cadence. Returns the best val mean IU."""
+        """One train step per batch of `train_iter`: host numpy batches
+        (images NHWC, labels NHW, ...), which are copied to `cfg.device`
+        here, or batches already there from `data.device_prefetch` (images
+        NCHW). Logs every `log_every` steps, evaluates and checkpoints on the
+        `should_eval` cadence, and returns the best val mean IU.
+
+        On the main thread a SIGTERM handler is installed for the call: the
+        step in flight finishes, the full state is saved to the auto-resume
+        stream, `fit` returns, and the previous handler is back. Rerun with
+        `--S_resume true` and the same `snapshot_dir` to continue."""
         cfg = self.cfg
-        best = cfg.best_mean_IU
+        writer = MetricsWriter(cfg.log_path) if cfg.log_path else None
+        self._preempt_requested = False
+        on_main = threading.current_thread() is threading.main_thread()
+        prev = signal.signal(signal.SIGTERM, self._on_sigterm) if on_main else None
+        try:
+            return self._fit_loop(train_iter, val_loader, eval_out_size, writer)
+        finally:
+            if on_main:
+                signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
+            if writer is not None:
+                writer.close()
+
+    def _on_sigterm(self, signum, frame) -> None:
+        self._preempt_requested = True
+        log.info("SIGTERM: checkpointing at the next step boundary")
+
+    def _on_device(self, batch) -> tuple:
+        images, labels = batch[0], batch[1]
+        if not isinstance(images, torch.Tensor):  # a host batch, NHWC
+            images = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            images = images.permute(0, 3, 1, 2).contiguous()
+            labels = torch.from_numpy(np.asarray(labels)).to(self.device)
+        return images, labels
+
+    def _fit_loop(self, train_iter, val_loader, eval_out_size, writer) -> float:
+        cfg = self.cfg
         t_last = time.time()
         steps_since_log = 0
         for batch in train_iter:
             step = self.state.step + 1
-            images = torch.from_numpy(np.ascontiguousarray(batch[0])).to(self.device)
-            images = images.permute(0, 3, 1, 2).contiguous()
-            labels = torch.from_numpy(np.asarray(batch[1])).to(self.device)
+            images, labels = self._on_device(batch)
             metrics = self.train_step(self.state, images, labels, self.generator)
             steps_since_log += 1
 
@@ -126,20 +186,34 @@ class KDTrainer:
                 ips = steps_since_log * cfg.batch_size / max(dt, 1e-9)
                 t_last = time.time()
                 steps_since_log = 0
+                g_lr = self.state.g_sched(step)
                 log.info("step:%5d G_lr:%.6f G_loss:%.5f (mc:%.5f pi:%.5f pa:%.5f) "
                          "D_lr:%.6f D_loss:%.5f img/s:%.2f",
-                         step, self.state.g_sched(step), m["g_loss"], m["mc_loss"],
+                         step, g_lr, m["g_loss"], m["mc_loss"],
                          m.get("pi_loss", 0.0), m.get("pa_loss", 0.0),
                          self.state.d_sched(step), m["d_loss"], ips)
                 self.history.append((step, m))
+                if writer is not None:
+                    writer.write(step, {**m, "img_per_sec": ips, "g_lr": g_lr})
 
             if val_loader is not None and cfg.should_eval(step):
                 loader = val_loader() if callable(val_loader) else val_loader
                 mean_iu, iu_array = self.evaluate(loader, eval_out_size)
                 log.info("[val] step %d mean_IU: %.6f IU_array: %s", step, mean_iu,
                          np.array2string(iu_array, precision=4))
-                best = max(best, mean_iu)
-        return best
+                if writer is not None:
+                    writer.write(step, {"val_mean_iu": mean_iu})
+                is_best = mean_iu > self.best_mean_iu
+                self.best_mean_iu = max(self.best_mean_iu, mean_iu)
+                self.save_checkpoint(step, mean_iu, is_best=is_best)
+
+            if self._preempt_requested:
+                path = ckpt.save_auto_resume(
+                    self._auto_resume_dir, self.full_state(step, self.best_mean_iu, step), step)
+                log.info("preempted: full state saved at step %d to %s; rerun with "
+                         "--S_resume true and the same snapshot_dir to resume", step, path)
+                break
+        return self.best_mean_iu
 
     def evaluate(self, val_loader: Iterable, out_size=(1024, 2048)):
         """The student's whole-image val sweep; returns (mean_IU, IU_array)."""
@@ -151,3 +225,74 @@ class KDTrainer:
         finally:
             self.student.train()
         return mean_iu, iu_array
+
+    # ------------------------------------------------------------ checkpoints
+    @property
+    def _auto_resume_dir(self) -> str:
+        return os.path.join(self.cfg.snapshot_dir, "latest")
+
+    def full_state(self, step: int, best_mean_iu: float, state_step: int) -> dict:
+        """The reference's rich checkpoint (`state_dict` = the student, `step`,
+        `best_mean_IU`) with the rest of the train state beside it;
+        `state_step` is the step the state is at, which a resume restores."""
+        return {"state_dict": self.student.state_dict(), "step": int(step),
+                "best_mean_IU": float(best_mean_iu),
+                "discriminator": self.discriminator.state_dict(),
+                "g_opt": self.state.g_opt.state_dict(), "d_opt": self.state.d_opt.state_dict(),
+                "generator": self.generator.get_state(), "state_step": int(state_step)}
+
+    def save_checkpoint(self, step: int, mean_iu: float, is_best: bool = False,
+                        state_step: Optional[int] = None) -> str:
+        """At an eval: the cadence snapshot, the `model_best.pth.tar` copy when
+        `is_best`, and the auto-resume file. `step` names the files (the
+        reference's convention, kd_model.py:192); `state_step` (default
+        `state.step`, the only value the per-step loop passes) is the step
+        the saved state is at: recorded in every file and restored by a
+        resume. Returns the snapshot's path."""
+        cfg = self.cfg
+        state_step = int(self.state.step if state_step is None else state_step)
+        path = os.path.join(cfg.snapshot_dir, f"CS_scenes_{step}_{mean_iu}")
+        snapshot = ckpt.save_student_snapshot(path, self.student.state_dict(), step=step,
+                                              mean_iu=mean_iu, state_step=state_step)
+        if is_best:
+            best_dir = cfg.S_ckpt_path or cfg.snapshot_dir
+            ckpt.save_torch(self.full_state(step, mean_iu, state_step),
+                            os.path.join(best_dir, "model_best.pth.tar"))
+        ckpt.save_auto_resume(
+            self._auto_resume_dir,
+            self.full_state(state_step, max(self.best_mean_iu, mean_iu), state_step), state_step)
+        return snapshot
+
+    def resume_from_snapshot(self, path: str) -> int:
+        """Resume from an explicit checkpoint; returns the restored step.
+
+        A file with the full train state (the port's `model_best.pth.tar`, an
+        auto-resume file) restores the run exactly. A reference-style
+        `.pth[.tar]` (a `state_dict` with `step` / `best_mean_IU`, or a bare
+        state dict with a `.json` sidecar, as `CS_scenes_*.pth`) is a
+        weights-only resume, as in the JAX package: the student's weights,
+        the step (and so the lr), the best mean IU; momentum restarts and D
+        keeps its weights."""
+        sd, meta = ckpt.load_torch_checkpoint(path)
+        if "discriminator" in meta:
+            self.student.load_state_dict(sd)
+            self.discriminator.load_state_dict(meta["discriminator"])
+            self.state.g_opt.load_state_dict(meta["g_opt"])
+            self.state.d_opt.load_state_dict(meta["d_opt"])
+            self.generator.set_state(meta["generator"])
+            self.state.step = int(meta["state_step"])
+        else:
+            load_reference_state_dict(self.student, sd)
+            if not meta and os.path.isfile(os.path.splitext(path)[0] + ".json"):
+                meta = ckpt.load_meta(path)
+            self.state.step = int(meta.get("state_step", meta.get("step")) or 0)
+        best = float(meta.get("best_mean_IU", meta.get("mean_iu")) or 0.0)
+        self.best_mean_iu = max(self.best_mean_iu, best)
+        log.info("resumed from %s (step %d, best_mean_IU %.4f)", path, self.state.step, best)
+        return self.state.step
+
+    def try_resume(self) -> int:
+        """Restore the newest file of the auto-resume stream (after a crash or
+        a preemption); returns its step, 0 if there is none."""
+        path = ckpt.latest_auto_resume(self._auto_resume_dir)
+        return 0 if path is None else self.resume_from_snapshot(path)

@@ -33,12 +33,17 @@ bf16 (one rounding of f32 sums taken in another order). bf16 with Cin a
 multiple of 64 and Cout 64 or 128 takes the tensor-core kernel
 (`csrc/conv3x3_wgmma.cu`), every other case the direct one
 (`csrc/conv3x3.cu`); `pytest -k conv3x3` runs only the K9 tests.
+
+`data.device_prefetch` on the card: the batches arrive equal to the host's
+(NCHW images), copied from pinned memory, and a step that overwrites its
+inputs in place while the producer runs ahead corrupts no later batch.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from structure_knowledge_distillation_tpu_torch.data import cast_batches, device_prefetch
 from structure_knowledge_distillation_tpu_torch.ops import ABN, fused_bn
 from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import abn_fused_train
@@ -476,3 +481,60 @@ def test_conv3x3_wrapper_checks(cuda_device):
     wb = torch.zeros(3, 3, 64, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):  # a view 2 bytes past an aligned base
         conv3x3(xb.view(-1)[1:1 + 16 * 64].view(1, 4, 4, 64), wb)
+
+
+def _host_batches(n, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(0, 60, shape).astype(np.float32),
+             rng.integers(0, 19, shape[:3]).astype(np.int32),
+             np.array([shape[1:]] * shape[0]), [f"b{i}_{j}" for j in range(shape[0])])
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32+i32", "bf16+u8"])
+def test_device_prefetch_copies_pinned_batches_to_the_card(cuda_device, monkeypatch, narrow):
+    pinned = []
+    real_pin = torch.Tensor.pin_memory
+
+    def pin_memory(self, *args, **kwargs):
+        out = real_pin(self, *args, **kwargs)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pin_memory)
+    batches = _host_batches(4, (8, 64, 96, 3))
+    upstream = iter(batches)
+    if narrow:
+        upstream = cast_batches(upstream, torch.bfloat16, torch.uint8)
+    got = list(device_prefetch(upstream, cuda_device))
+    assert pinned == [True] * 2 * len(batches)
+    assert len(got) == len(batches)
+    for (img, lab, size, names), ref in zip(got, batches):
+        assert img.device == lab.device == cuda_device
+        assert img.shape == (8, 3, 64, 96) and img.is_contiguous()
+        want_img = torch.from_numpy(ref[0]).permute(0, 3, 1, 2)
+        want_lab = torch.from_numpy(ref[1])
+        if narrow:
+            want_img, want_lab = want_img.to(torch.bfloat16), want_lab.to(torch.uint8)
+        assert torch.equal(img.cpu(), want_img) and torch.equal(lab.cpu(), want_lab)
+        assert size is ref[2] and names is ref[3]
+
+
+def test_device_prefetch_survives_a_step_that_overwrites_its_inputs(cuda_device):
+    """Each 'step' sleeps on the card, then copies its batch and overwrites
+    the batch in place; the producer meanwhile stages the next batches on its
+    own stream. Without the stream wait or `record_stream`, a later batch
+    would land in memory the step still reads, or be read before it lands."""
+    batches = _host_batches(6, (8, 256, 256, 3), seed=1)
+    kept = []
+    for img, lab, *_ in device_prefetch(iter(batches), cuda_device, buffer_size=2):
+        torch.cuda._sleep(20_000_000)
+        kept.append((img.clone(), lab.clone()))
+        img.fill_(float("nan"))
+        lab.fill_(-1)
+        del img, lab
+    torch.cuda.synchronize()
+    assert len(kept) == len(batches)
+    for (img, lab), ref in zip(kept, batches):
+        assert torch.equal(img.cpu(), torch.from_numpy(ref[0]).permute(0, 3, 1, 2))
+        assert torch.equal(lab.cpu(), torch.from_numpy(ref[1]))

@@ -131,6 +131,7 @@ def test_port_imports_without_jax():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import structure_knowledge_distillation_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
@@ -138,10 +139,13 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'structure_knowledge_distillation_tpu'"
         " or m.startswith('structure_knowledge_distillation_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = {'data.cache', 'data.native', 'data.lists', 'data.prefetch',"
+        " 'utils.metrics_writer', 'utils.logging_utils'}\n"
+        "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 38

@@ -20,7 +20,7 @@ cosine > 0.90, with the floor of that test for tensors that carry a sliver of
 the whole update.
 """
 
-import logging
+import json
 import math
 
 import jax
@@ -251,16 +251,22 @@ SMALL = ["--data-set", "synthetic", "--input-size", "256,256", "--batch-size", "
          "--device", "cpu", "--log-every", "1"]
 
 
-def test_cli_train_synthetic_finishes_with_finite_losses(caplog):
+def test_cli_train_synthetic_finishes_with_finite_losses(tmp_path):
     """The entry point end to end on the CPU: the full-width R18 student in
-    the default bf16 compute, two steps and the in-training eval."""
-    caplog.set_level(logging.INFO)
-    best = port_cli.main(SMALL)
-    steps = [r.args for r in caplog.records if r.getMessage().startswith("step:")]
-    assert [s[0] for s in steps] == [1, 2]
-    for s in steps:
-        assert all(math.isfinite(v) for v in s[1:]), s
-    assert any("[val] step 1" in r.getMessage() for r in caplog.records)
+    the default bf16 compute, two steps and the in-training eval, with its
+    metrics in `<log_path>/scalars.jsonl` and its checkpoints under the
+    given directories."""
+    best = port_cli.main(SMALL + ["--log-path", str(tmp_path / "log"),
+                                  "--snapshot-dir", str(tmp_path / "snap"),
+                                  "--S_ckpt_path", str(tmp_path / "student")])
+    with open(tmp_path / "log" / "scalars.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "g_loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    for r in steps:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert [r["step"] for r in rows if "val_mean_iu" in r] == [1]
+    assert list((tmp_path / "snap").glob("CS_scenes_1_*.pth"))
     assert 0.0 <= best <= 1.0
 
 
@@ -269,10 +275,10 @@ def test_cli_train_synthetic_finishes_with_finite_losses(caplog):
     (["--student-arch", "espnet"], "item 7"),
     (["--remat", "true"], "item 7"),
     (["--unroll-steps", "2"], "item 6"),
-    (["--S_resume", "true"], "item 6"),
+    (["--flip", "true"], "item 4"),
     (["--num-data-shards", "2"], "item 8"),
     (["--wire-format", "u8"], "item 4"),
-    (["--data-set", "cityscapes"], "items 6"),
+    (["--data-set", "voc"], "item 7"),
 ])
 def test_cli_train_unported_options_raise_naming_roadmap(flags, item):
     argv = SMALL + flags

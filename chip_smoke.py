@@ -6,9 +6,10 @@ Drives the port's main paths on the card, in phases: the whole-image eval
 path (`training/evaluate.py::evaluate_main`) at Cityscapes full resolution,
 the Pi+Pa+Ho distillation train step (`training/trainer.py::KDTrainer.fit`)
 at the reference recipe, both again with the fused ABN (`bn_fused=True`,
-kernels K6–K8), the conv3x3 probe (K9), and the whole training run through
+kernels K6–K8), the conv3x3 probe (K9), the whole training run through
 the train CLI from Cityscapes-shaped frames on disk (loader workers,
-prefetch, checkpoints, SIGTERM and resume). Each phase prints one line and
+prefetch, checkpoints, SIGTERM and resume), and the multi-step loop as
+CUDA-graph replays (`--unroll-steps`). Each phase prints one line and
 any failure ends the run with a non-zero exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
@@ -102,7 +103,30 @@ any failure ends the run with a non-zero exit:
      serial vs 4 workers, no, cold and warm cache), the H2D time of one batch
      (pageable f32 vs pinned bf16 + uint8 on a side stream), leg 2's step
      times, and each checkpoint's save ms and size, with the card's name and
-     power limit.
+     power limit;
+ 16. train_loop: the multi-step loop (`make_train_loop`, unroll 4) on phase
+     11's models. Equivalence: after the loop's eager warm-up chunk, a copy
+     of the fused state takes 4 eager `train_step`s (every uniform they draw
+     recorded) while the original's next chunk is captured as one CUDA
+     graph and replayed: the replay's lrs and uniforms (so its dropout masks
+     and α) must equal the eager ones bit for bit, the generators must end
+     equal, the losses must agree within phase 9's rtol/atol and every
+     tensor (parameters, momentum, u/v, running statistics) within 2 % in
+     its change over the chunk, with phase 9's floor.
+     Timing: for the fused and the unfused state, eager and graph chunks in
+     turns, three each, unprofiled (ms per step, img/s, capture ms, peak
+     memory), then one profiled chunk of each (device busy share: the union
+     of kernel and copy intervals over the profiled wall, and over the
+     unprofiled median wall, which the profiler's host cost does not
+     stretch). One profiled fused replay
+     must hold K4 = K5 = 4, K6 = 141·4, K7 = K8 = 29·4 launches, counted by
+     kernel name (the Python counters count a captured kernel once, at
+     capture), and an unfused one K4 = K5 = 4 and no K6–K8. Last the train CLI
+     with --unroll-steps 4 --profile-dir over 14 synthetic steps at full
+     width: the eager chunk, a capture and its replay, a replay, an eager
+     tail of 2; finite losses logged at steps 1–14, the eval at step 13, the
+     loop's log of 8 replayed and 6 eager steps, and one trace file that
+     names K4's kernel.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -115,6 +139,7 @@ last two lines are the kernels' JSON record and the contract line
 
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import logging
@@ -123,6 +148,7 @@ import multiprocessing
 import os
 import signal
 import statistics
+import re
 import subprocess
 import sys
 import tempfile
@@ -141,7 +167,9 @@ from structure_knowledge_distillation_tpu_torch.data import (
     SyntheticSegDataset,
     batch_iterator,
     cast_batches,
+    chunk_batches,
     make_cityscapes_lists,
+    to_nchw,
     warm_cache,
 )
 from structure_knowledge_distillation_tpu_torch.models import (
@@ -192,7 +220,10 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
     make_sgd,
     poly_schedule,
 )
-from structure_knowledge_distillation_tpu_torch.training.train_step import make_train_step
+from structure_knowledge_distillation_tpu_torch.training.train_step import (
+    make_train_loop,
+    make_train_step,
+)
 from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
 
 FULL_RES = (1024, 2048)
@@ -247,7 +278,25 @@ CS_FRAMES = (("train", 16), ("val", 2))
 CS_WORKERS = 4
 CS_STEPS, CS_EVAL_EVERY, CS_SIGTERM_AFTER = 6, 2, 3
 CS_LOADER_BATCHES = 8
+# phase 16: the multi-step loop at unroll 4. Eager steps and a replay of
+# the same chunk from copies of one state run the same kernels in the same
+# order, but cuDNN's weight-gradient kernels sum with atomics in an order
+# that changes from run to run, and over 4 GAN steps in bf16 such roundings
+# grow: every tensor is held to phase 9's 2 % (relative L2 of its change
+# over the chunk, with phase 9's floor), the losses to phase 9's rtol/atol.
+# By the change and not the value: D's u/v and the running statistics move
+# about 1e-4 of their value in 4 steps, so a graph that left them as they
+# were would pass a comparison of values. The graph's own kernels are
+# counted from a profiled replay.
+LOOP_UNROLL = 4
+LOOP_TENSOR_REL = 2e-2
+LOOP_TURNS = 3
+LOOP_CLI_STEPS = 14
+GRAPH_KERNELS = {"K4": "ce_fwd_interval_kernel", "K5": "ce_bwd_interval_kernel",
+                 "K6": "bn_fwd_kernel", "K7": "bn_sums_kernel", "K8": "bn_bwd_kernel"}
+STEP_RANGES = ("teacher_forward", "student_loss_and_grad", "d_loss_and_grad")
 HBM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES_PER_S = 2.0e9  # above the H100 SXM's 1.98 GHz boost clock
 PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
 
 
@@ -271,17 +320,27 @@ def card_bound(nbytes: float, flops: float, peak: str = "f32") -> dict:
 
 def cuda_median_ms(fn, reps: int = 20, trials: int = 5) -> float:
     """Device time of one `fn()` in ms: the median over `trials` of CUDA
-    events around `reps` back-to-back calls. Each trial first queues ~10 ms
-    of device sleep, so all `reps` calls are enqueued before the device
-    reaches them and the host's launch overhead stays out of the number (in
-    the eval path the forward's device work hides it the same way)."""
+    events around `reps` back-to-back calls. Each trial first queues a
+    device sleep (at least ~10 ms, and at least twice the host time that
+    `reps` calls took to enqueue, measured once first: an autograd backward
+    on a loaded host can take longer than 10 ms to enqueue 20 times), so all
+    `reps` calls are enqueued before the device reaches them and the host's
+    launch overhead stays out of the number (in the eval path the forward's
+    device work hides it the same way)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # _sleep counts SM clock cycles; at most SLEEP_CYCLES_PER_S of them a second
+    cycles = max(20_000_000, int(2 * enqueue_s * SLEEP_CYCLES_PER_S))
     times = []
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -1536,6 +1595,342 @@ def phase_train_cityscapes(device: torch.device, card: str, synthetic_step_ms: f
     return stats
 
 
+def _full_state(cfg, device: torch.device, bn_fused: bool) -> tuple:
+    """Phase 11's models, fused or not: the R101 teacher from seed 2 with
+    phase 8's running statistics, student and D drawn from a generator
+    seeded as `KDTrainer` seeds it; returns (state, generator)."""
+    dtype = torch.bfloat16
+    teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), NUM_CLASSES, device=device,
+                        generator=torch.Generator().manual_seed(2), dtype=dtype,
+                        bn_fused=bn_fused)
+    randomize_bn_stats(teacher, 3)
+    teacher.requires_grad_(False)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    student = ResPSPNet(BASIC, (2, 2, 2, 2), NUM_CLASSES, device=device, dtype=dtype,
+                        generator=gen, bn_fused=bn_fused)
+    disc = Discriminator(NUM_CLASSES, preprocess_mode=cfg.preprocess_gan_mode,
+                         image_size=cfg.imsize_for_adv, conv_dim=cfg.adv_conv_dim, dtype=dtype,
+                         device=device, generator=gen)
+    state = KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+    return state, gen
+
+
+def _device_chunks(cfg, n: int, device: torch.device) -> list:
+    """n chunks of LOOP_UNROLL synthetic batches on the card, as the CLI's
+    wire makes them: bf16 NCHW images, uint8 labels."""
+    ds = SyntheticSegDataset(n * LOOP_UNROLL * cfg.batch_size, TRAIN_CROP, NUM_CLASSES, seed=4)
+    chunks = chunk_batches(cast_batches(batch_iterator(ds, cfg.batch_size, shuffle=False),
+                                        torch.bfloat16, torch.uint8), LOOP_UNROLL)
+    return [(to_nchw(c.images.to(device)), c.labels.to(device)) for c in chunks]
+
+
+def _loop_state(state: KDTrainState) -> dict:
+    """Every parameter and buffer of student and D, and both momentum sets."""
+    out = {}
+    for name, module in (("student", state.student), ("disc", state.discriminator)):
+        out.update({f"{name}.{k}": v.detach().clone() for k, v in module.state_dict().items()})
+    for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        for i, st in opt.state_dict()["state"].items():
+            out[f"{name}.{i}.momentum"] = st["momentum_buffer"].detach().clone()
+    return out
+
+
+def _compare_loop_states(start: dict, eager: dict, graph: dict, param_names: set) -> dict:
+    """Per tensor, the relative L2 difference of graph against eager in the
+    change over the chunk (graph − start against eager − start), for
+    parameters, momenta, spectral u/v and running statistics alike; a tensor
+    whose change is under 1e-4 of the largest change of its kind is held to
+    that floor (phase 9's rule). Returns the worst of each kind and how many
+    tensors are bit-equal."""
+    check(sorted(eager) == sorted(graph) == sorted(start), "the runs' state keys differ")
+    refs = {k: (eager[k] - start[k]).double() for k in eager}
+    outs = {k: (graph[k] - start[k]).double() for k in graph}
+
+    def kind(k: str) -> str:
+        if k in param_names:
+            return "param_update"
+        if k.endswith("momentum"):
+            return "momentum"
+        if k.endswith(("weight_u", "weight_v")):
+            return "spectral_uv"
+        return "bn_stats"
+
+    floors: dict = {}
+    for k, r in refs.items():
+        if r.is_floating_point():
+            floors[kind(k)] = max(floors.get(kind(k), 0.0), UPDATE_FLOOR * r.norm().item())
+    worst: dict = {}
+    for k, r in refs.items():
+        if not r.is_floating_point():
+            check(torch.equal(r, outs[k]), f"eager vs graph {k} differs")
+            continue
+        nr, err = r.norm().item(), (outs[k] - r).norm().item()
+        check(err <= max(LOOP_TENSOR_REL * nr, floors[kind(k)]),
+              f"eager vs graph {k}: |diff| {err} vs |ref| {nr}")
+        rel = err / nr if nr > 0 else 0.0
+        worst[kind(k)] = max(worst.get(kind(k), (0.0, "")), (rel, k))
+    bit_equal = sum(torch.equal(eager[k], graph[k]) for k in eager)
+    return {"worst": worst, "bit_equal_tensors": bit_equal, "tensors": len(eager)}
+
+
+def _timed_chunk(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _profiled_chunk(fn) -> dict:
+    """One chunk under torch.profiler: wall ms, the union of the device's
+    kernel and copy intervals over that wall (the `record_function` ranges,
+    which the trace also puts on the device, left out), and the kernels
+    counted by name."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in STEP_RANGES]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in rows)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    names = Counter(e.name for e in rows)
+    counts = {k: sum(n for name, n in names.items()
+                     if re.search(rf"(?<![A-Za-z0-9_]){kernel}(?![A-Za-z0-9_])", name))
+              for k, kernel in GRAPH_KERNELS.items()}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / wall_ms, "device_rows": len(rows), "kernels": counts}
+
+
+def _loop_variant(device: torch.device, bn_fused: bool, chunks: list) -> dict:
+    """Warm-up and capture of one state's loop, then its chunks timed in
+    turns with eager ones (`train_step` on the same state); the caller
+    profiles later, after every unprofiled timing."""
+    cfg = _train_config(unroll_steps=LOOP_UNROLL)
+    state, gen = _full_state(cfg, device, bn_fused)
+    loop = make_train_loop(cfg, cfg.unroll_steps)
+    train_step = make_train_step(cfg)
+    loop(state, *chunks[0], LOOP_UNROLL, gen)  # the eager warm-up chunk
+    torch.cuda.reset_peak_memory_stats(device)
+    capture_wall = _timed_chunk(lambda: loop(state, *chunks[1], LOOP_UNROLL, gen))
+    check(loop.captures == 1 and loop.replays == 1, "the second chunk was not captured")
+    peak_capture = torch.cuda.max_memory_allocated(device)
+
+    def eager_chunk(chunk):
+        return [train_step(state, chunk[0][i], chunk[1][i], gen) for i in range(LOOP_UNROLL)]
+
+    def graph_chunk(chunk):
+        return loop(state, *chunk, LOOP_UNROLL, gen)
+
+    eager_ms, graph_ms, peaks = [], [], {}
+    for turn in range(LOOP_TURNS):
+        chunk = chunks[2 + turn % (len(chunks) - 2)]
+        for label, fn, out in (("eager", eager_chunk, eager_ms), ("graph", graph_chunk, graph_ms)):
+            torch.cuda.reset_peak_memory_stats(device)
+            out.append(_timed_chunk(lambda: fn(chunk)) / LOOP_UNROLL)
+            peaks[label] = max(peaks.get(label, 0), torch.cuda.max_memory_allocated(device))
+    check(loop.replays == 1 + LOOP_TURNS and loop.eager_steps == LOOP_UNROLL,
+          f"replays {loop.replays}, eager steps {loop.eager_steps}")
+    return {"state": state, "gen": gen, "loop": loop, "eager_chunk": eager_chunk,
+            "graph_chunk": graph_chunk, "chunk": chunks[2],
+            "stats": {"eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+                      "eager_images_per_second": [TRAIN_BATCH * 1e3 / t for t in eager_ms],
+                      "graph_images_per_second": [TRAIN_BATCH * 1e3 / t for t in graph_ms],
+                      "capture_ms": loop.capture_ms, "capture_chunk_wall_ms": capture_wall,
+                      "max_memory_allocated": {"capture_and_replay": peak_capture, **peaks}}}
+
+
+def _loop_equivalence(device: torch.device, chunks: list) -> dict:
+    """From copies of one fused state after the loop's warm-up chunk: 4
+    eager `train_step`s (recording every uniform they draw) and the loop's
+    capture + one replay on the same chunk and generator state."""
+    cfg = _train_config(unroll_steps=LOOP_UNROLL)
+    state, gen = _full_state(cfg, device, bn_fused=True)
+    loop = make_train_loop(cfg, cfg.unroll_steps)
+    loop(state, *chunks[0], LOOP_UNROLL, gen)
+    check(loop.eager_steps == LOOP_UNROLL and loop.graph is None, "the warm-up was not eager")
+    ref = copy.deepcopy(state)
+    ref_gen = torch.Generator().set_state(gen.get_state())
+    start = _loop_state(state)
+    params = {f"{n}.{k}" for n, m in (("student", state.student), ("disc", state.discriminator))
+              for k, _ in m.named_parameters()}
+    steps = range(state.step, state.step + LOOP_UNROLL)
+    lrs = torch.tensor([state.g_sched(s) for s in steps] + [state.d_sched(s) for s in steps],
+                       dtype=torch.float32)
+
+    train_step = make_train_step(cfg)
+    drawn, real_rand = [], torch.rand
+
+    def recording_rand(*args, **kwargs):
+        out = real_rand(*args, **kwargs)
+        drawn.append(out.clone())
+        return out
+
+    torch.rand = recording_rand
+    try:
+        eager_m = [train_step(ref, chunks[1][0][i], chunks[1][1][i], ref_gen)
+                   for i in range(LOOP_UNROLL)]
+    finally:
+        torch.rand = real_rand
+    zero_counts()
+    graph_m = loop(state, *chunks[1], LOOP_UNROLL, gen)
+    torch.cuda.synchronize()
+    capture_counts = read_counts()
+    check(loop.captures == 1 and loop.replays == 1, "the chunk was not captured and replayed")
+
+    scalars = loop.static_scalars.cpu()
+    uniforms = torch.cat([d.reshape(-1) for d in drawn])
+    check(torch.equal(scalars[:2 * LOOP_UNROLL], lrs), "the replay's lrs differ from the eager ones")
+    check(torch.equal(scalars[2 * LOOP_UNROLL:], uniforms),
+          "the replay's uniforms (masks, α) differ from the eager steps'")
+    check(torch.equal(gen.get_state(), ref_gen.get_state()), "the generators differ after the chunk")
+    # the masks and α the device computes from those uniforms
+    plan = loop._plan
+    masks_kept = []
+    offset = 0
+    for _ in range(LOOP_UNROLL):
+        for shape in plan:
+            n = math.prod(shape)
+            if shape[1] > 1:  # a dropout mask, (N, C, 1, 1); α is (N, 1, 1, 1)
+                masks_kept.append(int((uniforms[offset:offset + n] < 0.9).sum()))
+            offset += n
+    loss_rel = {}
+    for i, em in enumerate(eager_m):
+        for k, v in em.items():
+            a, b = float(graph_m[k][i]), float(v)
+            check(math.isfinite(a) and abs(a - b) <= STEP_LOSS_RTOL * abs(b) + STEP_LOSS_ATOL,
+                  f"eager vs graph step {i} {k}: {b} vs {a}")
+            loss_rel[k] = max(loss_rel.get(k, 0.0), abs(a - b) / max(abs(b), 1e-30))
+    tensors = _compare_loop_states(start, _loop_state(ref), _loop_state(state), params)
+    return {"uniforms": int(uniforms.numel()), "draws_per_step": [list(p) for p in plan],
+            "dropout_channels_kept": masks_kept, "lrs": lrs.tolist(),
+            "loss_max_rel_diff": loss_rel, **tensors,
+            "capture_python_counts": {k: capture_counts[k] for k in GRAPH_KERNELS}}
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.records: list = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+
+def _loop_cli(device: torch.device) -> dict:
+    """`cli.train.main` with --unroll-steps 4 over 14 synthetic steps at full
+    width: the eager first chunk, a capture and its replay, a replay and an
+    eager tail of 2, with the profiler over steps [10, 15)."""
+    trainer_log = logging.getLogger("structure_knowledge_distillation_tpu_torch.training.trainer")
+    records = _Records()
+    with tempfile.TemporaryDirectory(prefix="skd_loop_cli_") as work:
+        prof_dir = os.path.join(work, "prof")
+        argv = ["--data-set", "synthetic", "--unroll-steps", str(LOOP_UNROLL),
+                "--num-steps", str(LOOP_CLI_STEPS), "--batch-size", str(TRAIN_BATCH),
+                "--input-size", "%d,%d" % TRAIN_CROP, "--log-every", "1",
+                "--device", device.type, "--profile-dir", prof_dir,
+                "--log-path", os.path.join(work, "log"),
+                "--snapshot-dir", os.path.join(work, "snap"), "--S_ckpt_path", ""]
+        trainer_log.addHandler(records)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            took = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            trainer_log.removeHandler(records)
+        rows = _scalars(os.path.join(work, "log"))
+        steps = [r for r in rows if "g_loss" in r]
+        check([r["step"] for r in steps] == list(range(1, LOOP_CLI_STEPS + 1)),
+              f"the CLI logged steps {[r['step'] for r in steps]}")
+        for r in steps:
+            check(all(math.isfinite(v) for v in r.values()), f"a loss is not finite: {r}")
+        evals = [r["step"] for r in rows if "val_mean_iu" in r]
+        check(evals == [LOOP_CLI_STEPS - 1], f"the CLI evaluated at steps {evals}")
+        summary = [r.args for r in records.records
+                   if str(r.msg).startswith("multi-step loop:")]
+        check(len(summary) == 1, "no multi-step loop summary logged")
+        replayed, replays, captures, eager = summary[0]
+        check((replayed, replays, captures, eager) == (8, 2, 1, 6),
+              f"the CLI's loop replayed {replayed} steps in {replays} replays "
+              f"({captures} captures), {eager} eager")
+        traces = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)] if os.path.isdir(
+            prof_dir) else []
+        check(len(traces) == 1, f"profile_dir holds {traces}")
+        with open(traces[0]) as f:
+            check(GRAPH_KERNELS["K4"] in f.read(), "the trace does not name K4's kernel")
+        trace_mb = os.path.getsize(traces[0]) / 1e6
+    return {"seconds": took, "steps_logged": len(steps), "eval_steps": evals,
+            "replayed_steps": replayed, "replays": replays, "eager_steps": eager,
+            "python_counts": {k: counts[k] for k in ("K1", "K4", "K5")},
+            "images_per_second": {r["step"]: r["img_per_sec"] for r in steps},
+            "losses_last": {k: steps[-1][k] for k in ("g_loss", "d_loss", "mc_loss")},
+            "trace_mb": trace_mb}
+
+
+def phase_train_loop(device: torch.device, card: str) -> dict:
+    """Phase 16: the multi-step loop (unroll 4) at full width: eager steps
+    against a replay of the same chunk, eager and graph chunks timed in
+    turns (fused and unfused), one profiled chunk of each, the launches of
+    a replay counted from the trace, then the train CLI with
+    --unroll-steps 4 --profile-dir."""
+    cfg = _train_config()
+    chunks = _device_chunks(cfg, 2 + LOOP_TURNS, device)
+    equivalence = _loop_equivalence(device, chunks)
+    torch.cuda.empty_cache()
+    variants = {"fused": _loop_variant(device, True, chunks)}
+    variants["unfused"] = _loop_variant(device, False, chunks)
+    stats, per_replay = {}, None
+    for name, v in variants.items():
+        # profiled after every unprofiled timing: after a profiler window, later
+        # unprofiled walls in the same process read slower
+        eager_p = _profiled_chunk(lambda: v["eager_chunk"](v["chunk"]))
+        graph_p = _profiled_chunk(lambda: v["graph_chunk"](v["chunk"]))
+        # the profiler's own host cost stretches the eager wall; the device
+        # time over the unprofiled median wall is the share without it
+        for p, key in ((eager_p, "eager_ms_per_step"), (graph_p, "graph_ms_per_step")):
+            wall = LOOP_UNROLL * statistics.median(v["stats"][key])
+            p["busy_share_of_unprofiled_wall"] = p["device_busy_ms"] / wall
+        stats[name] = {**v["stats"], "eager_profiled": eager_p, "graph_profiled": graph_p}
+        if name == "fused":
+            per_replay = graph_p["kernels"]
+    n_teacher = _fused_abns(variants["fused"]["state"].teacher)
+    n_student = _fused_abns(variants["fused"]["state"].student)
+    expect = {"K4": LOOP_UNROLL, "K5": LOOP_UNROLL, "K6": (n_teacher + n_student) * LOOP_UNROLL,
+              "K7": n_student * LOOP_UNROLL, "K8": n_student * LOOP_UNROLL}
+    check(per_replay == expect, f"one fused replay launched {per_replay}, expected {expect}")
+    unfused_replay = stats["unfused"]["graph_profiled"]["kernels"]
+    check(unfused_replay == {**{k: 0 for k in expect}, "K4": LOOP_UNROLL, "K5": LOOP_UNROLL},
+          f"one unfused replay launched {unfused_replay}")
+    del variants
+    torch.cuda.empty_cache()
+    cli = _loop_cli(device)
+    phase(16, "train_loop", card=card, unroll=LOOP_UNROLL,
+          model="R101 teacher -> R18 student, full width, bf16 convs, batch 8, 512^2",
+          equivalence=equivalence, launches_per_fused_replay=per_replay,
+          tensor_rel_max=LOOP_TENSOR_REL, loss_rtol=STEP_LOSS_RTOL, loss_atol=STEP_LOSS_ATOL,
+          **stats, cli=cli)
+    return {"stats": stats, "equivalence": equivalence, "cli": cli}
+
+
 def main() -> int:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1554,6 +1949,7 @@ def main() -> int:
     eval_fused = phase_eval_fused(device, eval_stats)
     k9 = phase_conv3x3_probe(device)
     phase_train_cityscapes(device, card, train["ms_per_step"])
+    phase_train_loop(device, card)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",

@@ -18,7 +18,9 @@ Rules of the package:
 Ported so far: the whole-image evaluation path of the PSPNet students and
 teachers (`cli/eval.py` → `training/evaluate.py::evaluate_main`) and the
 Pi+Pa+Ho distillation train step (`cli/train.py` →
-`training/trainer.py::KDTrainer.fit` → `training/train_step.py`).
+`training/trainer.py::KDTrainer.fit` → `training/train_step.py`), with its
+multi-step loop (`unroll_steps > 1`: one CUDA-graph replay per chunk on the
+card).
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,13 @@ full state saved there.
 
 Batches come from the host batcher (with `--num-workers` processes), are
 narrowed to bf16 images under bf16 compute and uint8 labels (unless
-`--wire-format f32`), and reach the device through `device_prefetch`.
+`--wire-format f32`), and reach the device through `device_prefetch`. With
+`--unroll-steps K > 1` they are stacked into chunks of K steps on the host
+first (`chunk_batches`), so one pinned copy moves a chunk, and the trainer
+runs each full chunk as one CUDA-graph replay on the card. `--profile-dir`
+writes a `torch.profiler` trace of steps [first + 9, first + 9 +
+`profile_steps`), a config field (5 by default) with no flag, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from structure_knowledge_distillation_tpu_torch.data import (
     SyntheticSegDataset,
     batch_iterator,
     cast_batches,
+    chunk_batches,
     device_prefetch,
     ensure_list,
 )
@@ -145,6 +152,10 @@ def main(argv=None) -> float:
                    else None)
     label_dtype = (torch.uint8 if cfg.classes_num <= 254 and cfg.ignore_label <= 255
                    and cfg.wire_format != "f32" else None)
+    if trainer.unroll > 1:
+        # stack the chunks on the host, then one transfer per chunk; the
+        # islice above still counts steps
+        host_iter = chunk_batches(host_iter, trainer.unroll)
     train_iter = device_prefetch(cast_batches(host_iter, image_dtype, label_dtype), cfg.device)
 
     def val_loader():

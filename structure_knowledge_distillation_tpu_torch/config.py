@@ -7,7 +7,9 @@ command lines carry over. One field is the port's own: `device` (`--device`,
 default `cuda`; a host without CUDA needs `--device cpu`).
 
 Resume (`S_resume`, `D_resume`, `last_step`), the loader workers
-(`num_workers`) and the decode cache (`decode_cache_dir`) are ported. Options
+(`num_workers`), the decode cache (`decode_cache_dir`), the multi-step loop
+(`unroll_steps`, one CUDA-graph replay per chunk on the card) and the step
+profiler (`profile_dir`, `profile_steps`) are ported. Options
 of the JAX package that the port has not ported raise `NotImplementedError`
 naming their ROADMAP item when set to anything but their default; the
 reference's GPU-era flags (`--gpu`, `--parallel`, `--is-training`,
@@ -26,7 +28,6 @@ from typing import Optional, Tuple
 
 __all__ = ["TrainConfig", "str2bool"]
 
-_ITEM6C = "ROADMAP Queue A item 6c 'fewer host launches'"
 _ITEM7 = "ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 _ITEM8 = "ROADMAP Queue A item 8 'DDP'"
 _ITEM4 = "ROADMAP Queue A item 4 'msf/sliding/sharded eval'"
@@ -147,8 +148,6 @@ class TrainConfig:
     def _check_ported(self) -> None:
         """Raise for every option the port has not ported yet."""
         checks = (
-            (self.unroll_steps > 1, f"unroll_steps > 1 (a multi-step device loop) is {_ITEM6C}"),
-            (bool(self.profile_dir), f"the step profiler (profile_dir) is {_ITEM6C}"),
             (self.ohem, f"the OHEM task loss is {_ITEM7}"),
             (self.student_arch != "resnet18", f"the ESPNet student is {_ITEM7}"),
             (self.remat, f"--remat (torch.utils.checkpoint) is {_ITEM7}"),
@@ -162,6 +161,8 @@ class TrainConfig:
         for failing, why in checks:
             if failing:
                 raise NotImplementedError(why)
+        if self.unroll_steps < 1:
+            raise ValueError(f"unroll_steps should be >= 1, got {self.unroll_steps}")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype should be bfloat16 or float32, "
                              f"got {self.compute_dtype!r}")
@@ -254,6 +255,9 @@ class TrainConfig:
         p.add_argument("--num-workers", default=0, type=int)
         p.add_argument("--seed", default=0, type=int)
         p.add_argument("--log-every", default=10, type=int)
+        p.add_argument("--profile-dir", default=cls.profile_dir, type=str,
+                       help="write a torch.profiler trace of steps [first+9, first+9+"
+                            "profile_steps) here")
         p.add_argument("--eval-every", default=0, type=int)
         p.add_argument("--best-mean-IU", default=0.0, type=float)
         p.add_argument("--scales", default="1.0", type=str,

@@ -7,7 +7,13 @@ from structure_knowledge_distillation_tpu_torch.data.cityscapes import (
     trainid2id,
 )
 from structure_knowledge_distillation_tpu_torch.data.lists import ensure_list, make_cityscapes_lists
-from structure_knowledge_distillation_tpu_torch.data.prefetch import cast_batches, device_prefetch
+from structure_knowledge_distillation_tpu_torch.data.prefetch import (
+    Chunk,
+    cast_batches,
+    chunk_batches,
+    device_prefetch,
+    to_nchw,
+)
 from structure_knowledge_distillation_tpu_torch.data.synthetic import SyntheticSegDataset
 
 # (eval resolution, default class count) per dataset, as in the JAX package:
@@ -24,14 +30,17 @@ DATASET_EVAL_DEFAULTS = {
 __all__ = [
     "DATASET_EVAL_DEFAULTS",
     "IMG_MEAN_BGR",
+    "Chunk",
     "CityscapesDataset",
     "batch_iterator",
     "cached_decode",
     "cast_batches",
+    "chunk_batches",
     "device_prefetch",
     "ensure_list",
     "id2trainid",
     "make_cityscapes_lists",
+    "to_nchw",
     "trainid2id",
     "warm_cache",
     "SyntheticSegDataset",

@@ -12,10 +12,13 @@ device while the current step runs:
   * `device_prefetch` copies each batch into pinned host memory and starts
     the host→device copies on a side CUDA stream, `buffer_size` batches
     ahead; the consumer's stream waits on the copy's event, so the copy
-    leaves the step's critical path. NHWC images become NCHW on the device.
+    leaves the step's critical path. NHWC images become NCHW on the device;
+  * `chunk_batches` stacks `unroll` per-step batches into one `Chunk` on the
+    host, for the multi-step loop (`training/train_step.py::
+    make_train_loop`): both functions above carry a `Chunk` whole, so its
+    `(unroll, N, ...)` stack crosses to the device in one pinned copy.
 
-The u8 image wire (`quantize_u8`) is ROADMAP Queue A item 4, and the
-multi-step chunks (`Chunk`, `chunk_batches`) item 6c.
+The u8 image wire (`quantize_u8`) is ROADMAP Queue A item 4.
 """
 
 from __future__ import annotations
@@ -27,26 +30,70 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["cast_batches", "device_prefetch"]
+__all__ = ["Chunk", "cast_batches", "chunk_batches", "device_prefetch", "to_nchw"]
 
 
 def _host_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
 
 
+class Chunk(NamedTuple):
+    """A stacked group of `unroll` training batches for the multi-step loop.
+
+    `images`/`labels` carry a leading (unroll,) axis; the last
+    `unroll - n_valid` entries are padding (repeats of the final batch) that
+    the loop does not train on, so every chunk, the tail of a run whose step
+    count is not a multiple of `unroll` included, has the same shapes."""
+
+    images: object
+    labels: object
+    n_valid: int
+
+
+def _stack(items: list):
+    if isinstance(items[0], torch.Tensor):
+        return torch.stack(items)
+    return np.stack([np.asarray(x) for x in items])
+
+
+def chunk_batches(iterator: Iterator, unroll: int) -> Iterator[Chunk]:
+    """Stack per-step (images, labels, ...) batches into `Chunk`s of `unroll`
+    on the host, before any device transfer, so that one copy moves a whole
+    chunk; the tail chunk is padded with repeats of its last batch. numpy
+    batches stack with numpy, tensors with `torch.stack`."""
+    buf: list = []
+
+    def emit(samples: list, n_valid: int) -> Chunk:
+        samples = samples + [samples[-1]] * (unroll - len(samples))
+        return Chunk(_stack([b[0] for b in samples]), _stack([b[1] for b in samples]),
+                     n_valid)
+
+    for b in iterator:
+        buf.append(b)
+        if len(buf) == unroll:
+            yield emit(buf, unroll)
+            buf = []
+    if buf:
+        yield emit(buf, len(buf))
+
+
 def cast_batches(iterator: Iterator, image_dtype: Optional[torch.dtype] = None,
                  label_dtype: Optional[torch.dtype] = None) -> Iterator:
-    """Cast the images and labels of (images, labels, ...) batches on the
-    host; they come out as CPU tensors of the given dtypes (None keeps a
-    field as it is). f32 → bf16 rounds to nearest even, as `ml_dtypes` does
-    in the JAX package; the train step widens uint8 labels to int32 on the
-    device."""
-    for images, labels, *rest in iterator:
+    """Cast the images and labels of (images, labels, ...) batches, or of
+    `Chunk`s, on the host; they come out as CPU tensors of the given dtypes
+    (None keeps a field as it is). f32 → bf16 rounds to nearest even, as
+    `ml_dtypes` does in the JAX package; the train step widens uint8 labels
+    to int32 on the device."""
+    for batch in iterator:
+        images, labels = batch[0], batch[1]
         if image_dtype is not None:
             images = _host_tensor(images).to(image_dtype)
         if label_dtype is not None:
             labels = _host_tensor(labels).to(label_dtype)
-        yield (images, labels, *rest)
+        if isinstance(batch, Chunk):
+            yield batch._replace(images=images, labels=labels)
+        else:
+            yield (images, labels, *batch[2:])
 
 
 class _ProducerError(NamedTuple):
@@ -55,28 +102,37 @@ class _ProducerError(NamedTuple):
     exc: BaseException
 
 
+def to_nchw(images: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) images → (..., C, H, W), contiguous: a batch or a
+    chunk's (unroll, N, H, W, C) stack."""
+    d = images.dim()
+    return images.permute(*range(d - 3), d - 1, d - 3, d - 2).contiguous()
+
+
 def _transfer(batch: tuple, device: torch.device, stream) -> tuple:
     """(images NHWC, labels, ...) on the host → (images NCHW, labels, ...) on
     `device`, and the event that marks the copies' end (None on the CPU).
-    Every other field stays on the host."""
-    images, labels, *rest = batch
-    images, labels = _host_tensor(images), _host_tensor(labels)
-    if stream is None:
-        return (images.permute(0, 3, 1, 2).contiguous(), labels, *rest), None
-    with torch.cuda.stream(stream):
-        # the caching host allocator hands a pinned block out again only
-        # after the copy that reads it has completed
-        images = images.pin_memory().to(device, non_blocking=True)
-        labels = labels.pin_memory().to(device, non_blocking=True)
-        images = images.permute(0, 3, 1, 2).contiguous()
-        event = torch.cuda.Event()
-        event.record(stream)
-    return (images, labels, *rest), event
+    Every other field stays on the host; a `Chunk` stays a `Chunk`."""
+    images, labels = _host_tensor(batch[0]), _host_tensor(batch[1])
+    if stream is not None:
+        with torch.cuda.stream(stream):
+            # the caching host allocator hands a pinned block out again only
+            # after the copy that reads it has completed
+            images = to_nchw(images.pin_memory().to(device, non_blocking=True))
+            labels = labels.pin_memory().to(device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+    else:
+        images, event = to_nchw(images), None
+    if isinstance(batch, Chunk):
+        return batch._replace(images=images, labels=labels), event
+    return (images, labels, *batch[2:]), event
 
 
 def device_prefetch(iterator: Iterator, device, buffer_size: int = 2) -> Iterator:
-    """Yield the batches of `iterator` with images (NCHW) and labels on
-    `device`, staged by a producer thread `buffer_size` batches ahead.
+    """Yield the batches (or `Chunk`s) of `iterator` with images (NCHW) and
+    labels on `device`, staged by a producer thread `buffer_size` batches
+    ahead.
 
     On a CUDA device the producer copies through pinned memory on its own
     stream; before a batch is handed out, the current stream waits on its

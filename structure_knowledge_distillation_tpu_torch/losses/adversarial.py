@@ -11,7 +11,7 @@ Counterpart of `structure_knowledge_distillation_tpu/losses/adversarial.py`
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +37,11 @@ def adv_loss_for_d(d_out_fake: torch.Tensor, d_out_real: torch.Tensor,
     raise ValueError("adv_type should be wgan-gp or hinge")
 
 
-def gp_alpha(n: int, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One uniform α per sample, (n, 1, 1, 1) f32, drawn on the CPU from
-    `generator` and moved to `device` (the same α on every device)."""
-    return torch.rand((n, 1, 1, 1), generator=generator).to(device)
+def gp_alpha(n: int, device, draws: Callable[[tuple], torch.Tensor]) -> torch.Tensor:
+    """One uniform α per sample, (n, 1, 1, 1) f32, from the train step's
+    uniform source `draws` (a callable shape -> tensor, as `Dropout2d`
+    takes), on `device`."""
+    return draws((n, 1, 1, 1)).to(device)
 
 
 def gradient_penalty(d_score_fn: Callable[[torch.Tensor], torch.Tensor], real: torch.Tensor,

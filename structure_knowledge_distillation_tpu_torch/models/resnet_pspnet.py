@@ -27,7 +27,7 @@ PSP upsample interpolates in f32. Parameters and running statistics stay f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -49,6 +49,7 @@ BOTTLENECK = "bottleneck"
 
 Device = Optional[torch.device | str]
 DType = Optional[torch.dtype]
+Draws = Callable[[tuple], torch.Tensor]  # a uniform source: shape -> U[0, 1) f32
 
 # PSP/DSN Dropout2d rate (reference pspnet_combine.py:100)
 DROP_RATE = 0.1
@@ -74,20 +75,25 @@ class Conv2d(nn.Conv2d):
 class Dropout2d(nn.Module):
     """Channel dropout, as the JAX model's `nn.Dropout(broadcast_dims=(1, 2))`:
     in train mode each (sample, channel) map is kept with probability
-    1 − rate and scaled by 1/(1 − rate). The mask is drawn on the CPU from
-    `generator` (torch's default generator when None) and moved to x's
-    device, so a seed gives the same masks on every device."""
+    1 − rate and scaled by 1/(1 − rate). The mask compares U[0, 1) draws
+    with 1 − rate. They come from `draws`, a callable shape -> f32 tensor
+    (the train step's uniform source, `training/train_step.py`: drawn on the
+    CPU from the trainer's generator, so a seed gives the same masks on
+    every device, or read from a device buffer the host filled from it
+    before a CUDA-graph replay); with None, from torch's default generator
+    on the CPU."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
         shape = tuple(x.shape[:2]) + (1,) * (x.dim() - 2)
-        keep = (torch.rand(shape, generator=generator) < keep_prob).to(x.device)
+        u = torch.rand(shape) if draws is None else draws(shape)
+        keep = (u < keep_prob).to(x.device)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
     def extra_repr(self) -> str:
@@ -180,12 +186,11 @@ class PSPModule(nn.Module):
             Dropout2d(drop_rate),
         )
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
         priors = [resize_bilinear_align_corners(stage(x), (h, w)) for stage in self.stages]
         conv, bn, dropout = self.bottleneck
-        return dropout(bn(conv(torch.cat(priors + [x], dim=1))), generator)
+        return dropout(bn(conv(torch.cat(priors + [x], dim=1))), draws)
 
 
 class ResPSPNet(nn.Module):
@@ -259,8 +264,9 @@ class ResPSPNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """The 7-tuple; `generator` draws the train-mode dropout masks."""
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None):
+        """The 7-tuple; `draws` is the train-mode dropout's uniform source
+        (see `Dropout2d`)."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
@@ -272,8 +278,8 @@ class ResPSPNet(nn.Module):
         x3 = self.layer3(x2)
         x4 = self.layer4(x3)
         conv1, bn, dropout, conv2 = self.dsn
-        x_dsn = conv2(dropout(bn(conv1(x3)), generator))
-        feat_after_psp = self.pspmodule(x4, generator)
+        x_dsn = conv2(dropout(bn(conv1(x3)), draws))
+        feat_after_psp = self.pspmodule(x4, draws)
         logits = self.head(feat_after_psp)
         return (logits, x_dsn, feat_after_psp, x4, x3, x2, x1)
 

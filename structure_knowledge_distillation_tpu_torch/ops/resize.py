@@ -39,7 +39,9 @@ def _interp_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     return a.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded, as the tap tables of ops/taps.py: a captured CUDA graph reads
+# the matrices by address, so an entry must never be evicted and freed
+@functools.lru_cache(maxsize=None)
 def interp_matrix_align_corners(n_in: int, n_out: int,
                                 device: torch.device | str = "cpu") -> torch.Tensor:
     """The (n_out, n_in) float32 align-corners operator on `device`."""

@@ -10,18 +10,24 @@ state-dict keys are the reference's: the wrapped conv is the submodule
 `module`, holding the parameters `weight_bar` (the un-normalised OIHW weight)
 and `bias`, and the buffers `weight_u` (O,) and `weight_v` (I·kh·kw,). The
 power iteration flattens the weight in torch's OIHW order.
+
+A train-mode forward rebinds u and v (autograd saved the previous ones);
+`spectral_in_place` puts the final values back into the buffers a train
+step started from, so `state_dict` and a CUDA graph, which reads the buffers
+it saw at capture, find them there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["SNConv"]
+__all__ = ["SNConv", "spectral_in_place"]
 
 
 def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -76,3 +82,23 @@ class SNConv(nn.Module):
         w = self.normalized_weight().to(dt)
         y = F.conv2d(x.to(dt), w, stride=self.stride, padding=self.padding)
         return y + self.module.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+@contextlib.contextmanager
+def spectral_in_place(module: nn.Module) -> Iterator[None]:
+    """Within the block every SNConv of `module` may rebind u and v; when it
+    ends, the final u and v are copied into the buffers bound when it began,
+    and those are bound again. The buffers are bound again if the block
+    raises, without the copy."""
+    homes = [(m.module, m.module.weight_u, m.module.weight_v)
+             for m in module.modules() if isinstance(m, SNConv)]
+    try:
+        yield
+        with torch.no_grad():
+            for holder, u, v in homes:
+                if holder.weight_u is not u:
+                    u.copy_(holder.weight_u)
+                    v.copy_(holder.weight_v)
+    finally:
+        for holder, u, v in homes:
+            holder.weight_u, holder.weight_v = u, v

@@ -40,7 +40,10 @@ def tap_tables(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
             np.stack([a[rows, lo], w_hi]).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=32)
+# the device tables are cached without bound: a captured CUDA graph (the
+# multi-step train loop) reads them by address, so an entry must never be
+# evicted and freed while a graph lives
+@functools.lru_cache(maxsize=None)
 def _device_tables(n_in: int, n_out: int, device: torch.device):
     idx, wt = tap_tables(n_in, n_out)
     return torch.from_numpy(idx).to(device), torch.from_numpy(wt).to(device)
@@ -61,7 +64,7 @@ def tap_intervals(n_in: int, n_out: int) -> np.ndarray:
     return np.searchsorted(lo, np.arange(n_in + 1), side="left").astype(np.int32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _device_intervals(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tap_intervals(n_in, n_out)).to(device)
 

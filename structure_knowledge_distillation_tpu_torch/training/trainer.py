@@ -27,23 +27,33 @@ A full state restores a run exactly: the student and D (spectral-norm u/v
 and BatchNorm statistics included), both momentum buffers, `state.step` and
 the `torch.Generator` of the dropout masks and the GP α.
 
-The multi-step device loop (`unroll_steps > 1`) and the step profiler
-(`profile_dir`) are ROADMAP Queue A item 6c; the config raises for them.
+With `unroll_steps > 1` the loop runs chunks of that many steps through
+`make_train_loop` (one CUDA-graph replay per full chunk on the card), as the
+JAX trainer runs its scanned loop: `Chunk`s from `data.chunk_batches` pass
+through, per-step batches are stacked here, logging reads each logged
+chunk's stacked metrics once, an eval that falls inside a chunk runs after
+it under the hit's step with the checkpoint's `state_step` at the chunk's
+end, and SIGTERM is answered at the chunk boundary. `profile_dir` traces
+steps [first + 9, first + 9 + profile_steps) of the run with
+`torch.profiler` (CPU and, on the card, CUDA activities), starting and
+stopping at chunk boundaries, into a trace file in `profile_dir`.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import signal
 import threading
 import time
-from typing import Iterable, Mapping, Optional
+from typing import Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
+from structure_knowledge_distillation_tpu_torch.data.prefetch import Chunk, chunk_batches, to_nchw
 from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt
@@ -56,7 +66,10 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
     make_sgd,
     poly_schedule,
 )
-from structure_knowledge_distillation_tpu_torch.training.train_step import make_train_step
+from structure_knowledge_distillation_tpu_torch.training.train_step import (
+    make_train_loop,
+    make_train_step,
+)
 from structure_knowledge_distillation_tpu_torch.utils import MetricsWriter
 
 __all__ = ["KDTrainer"]
@@ -64,6 +77,14 @@ __all__ = ["KDTrainer"]
 log = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
+
+
+def _enumerate_steps(chunks: Iterable[Chunk], first_step: int) -> Iterator[tuple]:
+    """Pair each Chunk with the global index of its first (valid) step."""
+    step = first_step
+    for chunk in chunks:
+        yield step, chunk
+        step += chunk.n_valid
 
 
 def _as_tensors(state_dict: Mapping) -> dict:
@@ -127,6 +148,10 @@ class KDTrainer:
             step=cfg.last_step,
         )
         self.train_step = make_train_step(cfg)
+        self.unroll = cfg.unroll_steps
+        # the chunk loop captures its CUDA graph lazily, at the first full
+        # chunk of `fit` after the eager one, so never before a resume
+        self.train_loop = make_train_loop(cfg, self.unroll) if self.unroll > 1 else None
         # (step, {metric: float}) at every logged step
         self.history: list = []
         # the best val mean IU so far: the config's, raised by resume and eval
@@ -138,13 +163,16 @@ class KDTrainer:
         """One train step per batch of `train_iter`: host numpy batches
         (images NHWC, labels NHW, ...), which are copied to `cfg.device`
         here, or batches already there from `data.device_prefetch` (images
-        NCHW). Logs every `log_every` steps, evaluates and checkpoints on the
-        `should_eval` cadence, and returns the best val mean IU.
+        NCHW); with `unroll_steps > 1`, `Chunk`s of either kind, or per-step
+        batches that are stacked here. Logs every `log_every` steps,
+        evaluates and checkpoints on the `should_eval` cadence, and returns
+        the best val mean IU.
 
         On the main thread a SIGTERM handler is installed for the call: the
-        step in flight finishes, the full state is saved to the auto-resume
-        stream, `fit` returns, and the previous handler is back. Rerun with
-        `--S_resume true` and the same `snapshot_dir` to continue."""
+        step (or chunk) in flight finishes, the full state is saved to the
+        auto-resume stream, `fit` returns, and the previous handler is back.
+        Rerun with `--S_resume true` and the same `snapshot_dir` to
+        continue."""
         cfg = self.cfg
         writer = MetricsWriter(cfg.log_path) if cfg.log_path else None
         self._preempt_requested = False
@@ -164,55 +192,123 @@ class KDTrainer:
 
     def _on_device(self, batch) -> tuple:
         images, labels = batch[0], batch[1]
-        if not isinstance(images, torch.Tensor):  # a host batch, NHWC
-            images = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-            images = images.permute(0, 3, 1, 2).contiguous()
+        if not isinstance(images, torch.Tensor):  # a host batch or chunk, NHWC
+            images = to_nchw(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
             labels = torch.from_numpy(np.asarray(labels)).to(self.device)
         return images, labels
+
+    def _chunks(self, train_iter: Iterable) -> Iterator[Chunk]:
+        """`Chunk`s of `unroll` steps: Chunks pass through, per-step batches
+        are stacked (the tail padded, `n_valid` marking its real steps)."""
+        it = iter(train_iter)
+        first = next(it, None)
+        if first is None:
+            return iter(())
+        it = itertools.chain([first], it)
+        return it if isinstance(first, Chunk) else chunk_batches(it, self.unroll)
+
+    def _groups(self, train_iter: Iterable, first_step: int) -> Iterator[tuple]:
+        """(first step, n_valid, batch or Chunk): per step when unroll is 1,
+        else per chunk."""
+        if self.train_loop is None:
+            for step, batch in enumerate(train_iter, first_step):
+                yield step, 1, batch
+        else:
+            for start, chunk in _enumerate_steps(self._chunks(train_iter), first_step):
+                yield start, chunk.n_valid, chunk
+
+    def _train(self, batch, n_valid: int) -> dict:
+        """Train a batch or a chunk; its metrics stacked to (unroll,)."""
+        images, labels = self._on_device(batch)
+        if self.train_loop is None:
+            metrics = self.train_step(self.state, images, labels, self.generator)
+            return {k: v[None] for k, v in metrics.items()}
+        return self.train_loop(self.state, images, labels, n_valid, self.generator)
+
+    def _start_profiler(self, profile_dir: str):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
+        prof.start()
+        return prof
 
     def _fit_loop(self, train_iter, val_loader, eval_out_size, writer) -> float:
         cfg = self.cfg
         t_last = time.time()
         steps_since_log = 0
-        for batch in train_iter:
-            step = self.state.step + 1
-            images, labels = self._on_device(batch)
-            metrics = self.train_step(self.state, images, labels, self.generator)
-            steps_since_log += 1
+        first_step = self.state.step + 1
+        # the profile window is relative to this run's first step, so a
+        # resumed run still writes a trace
+        profile_start = first_step + 9
+        profile_end = profile_start + cfg.profile_steps  # exclusive
+        profile_dir, prof = cfg.profile_dir, None
+        try:
+            for start, n_valid, batch in self._groups(train_iter, first_step):
+                end = start + n_valid - 1
+                if profile_dir and prof is None and start <= profile_start <= end:
+                    prof = self._start_profiler(profile_dir)
+                metrics_k = self._train(batch, n_valid)
+                steps_since_log += n_valid
+                if prof is not None and end >= profile_end - 1:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    prof.stop()
+                    prof = None
+                    log.info("profiler trace of steps %d-%d written to %s", profile_start,
+                             end, profile_dir)
+                    profile_dir = ""  # one window per run, as in the JAX trainer
 
-            if step % cfg.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                dt = time.time() - t_last
-                ips = steps_since_log * cfg.batch_size / max(dt, 1e-9)
-                t_last = time.time()
-                steps_since_log = 0
-                g_lr = self.state.g_sched(step)
-                log.info("step:%5d G_lr:%.6f G_loss:%.5f (mc:%.5f pi:%.5f pa:%.5f) "
-                         "D_lr:%.6f D_loss:%.5f img/s:%.2f",
-                         step, g_lr, m["g_loss"], m["mc_loss"],
-                         m.get("pi_loss", 0.0), m.get("pa_loss", 0.0),
-                         self.state.d_sched(step), m["d_loss"], ips)
-                self.history.append((step, m))
-                if writer is not None:
-                    writer.write(step, {**m, "img_per_sec": ips, "g_lr": g_lr})
+                log_hits = [s for s in range(start, end + 1) if s % cfg.log_every == 0]
+                if log_hits:
+                    ms = {k: v[:n_valid].tolist() for k, v in metrics_k.items()}
+                    dt = time.time() - t_last
+                    ips = steps_since_log * cfg.batch_size / max(dt, 1e-9)
+                    t_last = time.time()
+                    steps_since_log = 0
+                    for step in log_hits:
+                        m = {k: v[step - start] for k, v in ms.items()}
+                        g_lr = self.state.g_sched(step)
+                        log.info("step:%5d G_lr:%.6f G_loss:%.5f (mc:%.5f pi:%.5f pa:%.5f) "
+                                 "D_lr:%.6f D_loss:%.5f img/s:%.2f",
+                                 step, g_lr, m["g_loss"], m["mc_loss"],
+                                 m.get("pi_loss", 0.0), m.get("pa_loss", 0.0),
+                                 self.state.d_sched(step), m["d_loss"], ips)
+                        self.history.append((step, m))
+                        if writer is not None:
+                            writer.write(step, {**m, "img_per_sec": ips, "g_lr": g_lr})
 
-            if val_loader is not None and cfg.should_eval(step):
-                loader = val_loader() if callable(val_loader) else val_loader
-                mean_iu, iu_array = self.evaluate(loader, eval_out_size)
-                log.info("[val] step %d mean_IU: %.6f IU_array: %s", step, mean_iu,
-                         np.array2string(iu_array, precision=4))
-                if writer is not None:
-                    writer.write(step, {"val_mean_iu": mean_iu})
-                is_best = mean_iu > self.best_mean_iu
-                self.best_mean_iu = max(self.best_mean_iu, mean_iu)
-                self.save_checkpoint(step, mean_iu, is_best=is_best)
+                eval_hits = [s for s in range(start, end + 1) if cfg.should_eval(s)]
+                if val_loader is not None and eval_hits:
+                    # with unroll > 1 the eval state is the chunk's end (up to
+                    # unroll - 1 steps after the hit); the files keep the hit
+                    step = eval_hits[-1]
+                    loader = val_loader() if callable(val_loader) else val_loader
+                    mean_iu, iu_array = self.evaluate(loader, eval_out_size)
+                    log.info("[val] step %d mean_IU: %.6f IU_array: %s", step, mean_iu,
+                             np.array2string(iu_array, precision=4))
+                    if writer is not None:
+                        writer.write(step, {"val_mean_iu": mean_iu})
+                    is_best = mean_iu > self.best_mean_iu
+                    self.best_mean_iu = max(self.best_mean_iu, mean_iu)
+                    self.save_checkpoint(step, mean_iu, is_best=is_best, state_step=end)
 
-            if self._preempt_requested:
-                path = ckpt.save_auto_resume(
-                    self._auto_resume_dir, self.full_state(step, self.best_mean_iu, step), step)
-                log.info("preempted: full state saved at step %d to %s; rerun with "
-                         "--S_resume true and the same snapshot_dir to resume", step, path)
-                break
+                if self._preempt_requested:
+                    path = ckpt.save_auto_resume(
+                        self._auto_resume_dir, self.full_state(end, self.best_mean_iu, end), end)
+                    log.info("preempted: full state saved at step %d to %s; rerun with "
+                             "--S_resume true and the same snapshot_dir to resume", end, path)
+                    break
+        finally:
+            if prof is not None:
+                prof.stop()
+        if self.train_loop is not None:
+            lp = self.train_loop
+            log.info("multi-step loop: %d steps in %d CUDA-graph replays (%d captures), "
+                     "%d steps eager", lp.replayed_steps, lp.replays, lp.captures,
+                     lp.eager_steps)
         return self.best_mean_iu
 
     def evaluate(self, val_loader: Iterable, out_size=(1024, 2048)):

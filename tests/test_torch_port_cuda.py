@@ -37,13 +37,26 @@ multiple of 64 and Cout 64 or 128 takes the tensor-core kernel
 `data.device_prefetch` on the card: the batches arrive equal to the host's
 (NCHW images), copied from pinned memory, and a step that overwrites its
 inputs in place while the producer runs ahead corrupts no later batch.
+
+The multi-step train loop (`make_train_loop`) on the card, with the small
+models of the CPU tests in f32 (TF32 off, cuDNN deterministic): after its
+eager warm-up chunk, a chunk captured as a CUDA graph and replayed, then
+replayed again, ends where the same steps taken eagerly end, within 1e-5
+relative L2 per tensor (the same kernels on the same inputs); and a step
+that syncs with the host (`.item()`) makes the capture raise, with no
+eager fallback. That test comes last: a failed capture can leave the
+process's CUDA state unfit for later tests.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
+from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import cast_batches, device_prefetch
+from structure_knowledge_distillation_tpu_torch.models import Discriminator, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.ops import ABN, fused_bn
 from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import abn_fused_train
@@ -58,6 +71,15 @@ from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
     upsampled_ce_loss_dsn,
     upsampled_ce_loss_dsn_plain,
     upsampled_ce_loss_plain,
+)
+from structure_knowledge_distillation_tpu_torch.training.train_state import (
+    KDTrainState,
+    make_sgd,
+    poly_schedule,
+)
+from structure_knowledge_distillation_tpu_torch.training.train_step import (
+    make_train_loop,
+    make_train_step,
 )
 
 pytestmark = pytest.mark.cuda
@@ -538,3 +560,112 @@ def test_device_prefetch_survives_a_step_that_overwrites_its_inputs(cuda_device)
     for (img, lab), ref in zip(kept, batches):
         assert torch.equal(img.cpu(), torch.from_numpy(ref[0]).permute(0, 3, 1, 2))
         assert torch.equal(lab.cpu(), torch.from_numpy(ref[1]))
+
+
+# --- the multi-step loop on the card (the small models of the CPU tests)
+LOOP_K = 2
+
+
+def _loop_cfg():
+    return TrainConfig(classes_num=7, batch_size=2, input_size=(256, 256), imsize_for_adv=33,
+                       adv_conv_dim=16, num_steps=40, compute_dtype="float32", device="cuda")
+
+
+def _loop_state(device, student_cls=ResPSPNet) -> KDTrainState:
+    cfg = _loop_cfg()
+    g = torch.Generator().manual_seed(11)
+    teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), 7, width_mult=0.25, generator=g)
+    student = student_cls("basic", (1, 1, 1, 1), 7, width_mult=0.25, generator=g)
+    disc = Discriminator(7, 1, 33, 16, generator=g)
+    teacher.to(device).requires_grad_(False)
+    student.to(device)
+    disc.to(device)
+    return KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+
+
+def _loop_chunks(device, n, seed=5):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        images = rng.randn(LOOP_K, 2, 3, 256, 256).astype(np.float32)
+        images[:, 1] = 3.0 * images[:, 1] + 1.0
+        labels = rng.randint(0, 7, (LOOP_K, 2, 256, 256)).astype(np.uint8)
+        out.append((torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)))
+    return out
+
+
+@pytest.fixture
+def exact_cuda(cuda_device):
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+
+
+def test_train_loop_replays_equal_eager_steps(exact_cuda):
+    state, gen = _loop_state(exact_cuda), torch.Generator().manual_seed(3)
+    chunks = _loop_chunks(exact_cuda, 3)
+    loop = make_train_loop(_loop_cfg(), LOOP_K)
+    loop(state, *chunks[0], LOOP_K, gen)  # eager: the warm-up
+    assert loop.graph is None and loop.eager_steps == LOOP_K
+    ref, ref_gen = copy.deepcopy(state), torch.Generator().set_state(gen.get_state())
+    step = make_train_step(_loop_cfg())
+    want = [step(ref, c[0][i], c[1][i], ref_gen) for c in chunks[1:] for i in range(LOOP_K)]
+    got = [loop(state, *c, LOOP_K, gen) for c in chunks[1:]]
+    torch.cuda.synchronize()
+    assert (loop.captures, loop.replays, loop.replayed_steps) == (1, 2, 2 * LOOP_K)
+    assert state.step == ref.step == 3 * LOOP_K
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
+    for j, m in enumerate(want):
+        for k, v in m.items():
+            torch.testing.assert_close(got[j // LOOP_K][k][j % LOOP_K], v, rtol=1e-5, atol=1e-6)
+    for attr in ("student", "discriminator"):
+        a, b = getattr(state, attr).state_dict(), getattr(ref, attr).state_dict()
+        for k in b:
+            err = (a[k].double() - b[k].double()).norm().item()
+            assert err <= 1e-5 * max(b[k].double().norm().item(), 1e-12), (attr, k, err)
+    for opt, ropt in ((state.g_opt, ref.g_opt), (state.d_opt, ref.d_opt)):
+        for p, rp in zip(opt.param_groups[0]["params"], ropt.param_groups[0]["params"]):
+            a, b = opt.state[p]["momentum_buffer"], ropt.state[rp]["momentum_buffer"]
+            assert (a - b).double().norm() <= 1e-5 * max(b.double().norm().item(), 1e-12)
+
+
+def test_train_loop_refuses_a_fed_alpha_on_the_card(cuda_device):
+    """A fed α is for CPU parity runs: on the card the loop raises rather
+    than run the chunk eagerly in the graph's place."""
+    state, gen = _loop_state(cuda_device), torch.Generator().manual_seed(3)
+    (images, labels), = _loop_chunks(cuda_device, 1)
+    loop = make_train_loop(_loop_cfg(), LOOP_K)
+    with pytest.raises(ValueError, match="α"):
+        loop(state, images, labels, LOOP_K, gen, alpha_k=torch.rand(LOOP_K, 2, 1, 1, 1))
+    assert state.step == 0 and loop.eager_steps == 0
+
+
+class _SyncingStudent(ResPSPNet):
+    """A student whose forward reads a value back to the host: legal in an
+    eager step, refused while a CUDA graph is captured."""
+
+    def forward(self, x, draws=None):
+        out = super().forward(x, draws)
+        out[0].float().sum().item()
+        return out
+
+
+def test_train_loop_capture_raises_on_a_host_sync(cuda_device):
+    state, gen = _loop_state(cuda_device, _SyncingStudent), torch.Generator().manual_seed(3)
+    chunks = _loop_chunks(cuda_device, 2)
+    loop = make_train_loop(_loop_cfg(), LOOP_K)
+    loop(state, *chunks[0], LOOP_K, gen)
+    with pytest.raises(RuntimeError):
+        loop(state, *chunks[1], LOOP_K, gen)
+    assert loop.graph is None and loop.replays == 0 and loop.eager_steps == LOOP_K
+    assert state.step == LOOP_K

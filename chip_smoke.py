@@ -8,16 +8,19 @@ the Pi+Pa+Ho distillation train step (`training/trainer.py::KDTrainer.fit`)
 at the reference recipe, both again with the fused ABN (`bn_fused=True`,
 kernels K6–K8), the conv3x3 probe (K9), the whole training run through
 the train CLI from Cityscapes-shaped frames on disk (loader workers,
-prefetch, checkpoints, SIGTERM and resume), and the multi-step loop as
-CUDA-graph replays (`--unroll-steps`). Each phase prints one line and
-any failure ends the run with a non-zero exit:
+prefetch, checkpoints, SIGTERM and resume), the multi-step loop as
+CUDA-graph replays (`--unroll-steps`), and the other inference modes
+(multiscale+flip, sliding tiles, batched groups, the u8 image wire, the
+test-set submission of `cli.test`). Each phase prints one line (phase 17
+one a part) and any failure ends the run with a non-zero exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
      the torch/CUDA versions and the TF32 flags as set;
   2. build: compiles csrc/*.cu with nvcc (ops/_build.py) and prints the time;
   3. kernel: upsampled_argmax (K1) against upsampled_argmax_plain on the card
      at the eval path's shapes, f32 and bf16, plain and quantised (tied)
-     logits; mismatches must be < 1e-3 of the pixels and true ties (< 1e-5),
+     logits, and at evaluate_sharded's batch of 8 in f32 (its time and
+     bound in K1's `batch8` entry); mismatches must be < 1e-3 of the pixels and true ties (< 1e-5),
      and the class map must equal a tap-wise oracle's (the kernel's order of
      roundings, in separate torch operations) everywhere; prints warm median
      times from CUDA events, with the two-call F.interpolate + argmax beside
@@ -126,7 +129,26 @@ any failure ends the run with a non-zero exit:
      width: the eager chunk, a capture and its replay, a replay, an eager
      tail of 2; finite losses logged at steps 1–14, the eval at step 13, the
      loop's log of 8 replayed and 6 eager steps, and one trace file that
-     names K4's kernel.
+     names K4's kernel;
+ 17. eval_modes: phase 4's student (f32) on fake 1024×2048 Cityscapes frames
+     written from a seed (9 val, 2 test), one line a part with ms per frame,
+     `max_memory_allocated` and the launches counted over that part alone:
+     (1) the fast path on the f32 and the u8 wire: the two int64
+     confusions equal exactly, K1 once a frame; the H2D ms of one frame
+     (pageable f32, pinned f32, pinned u8); (2) multiscale (0.75, 1.0,
+     1.25) + flip; msf at (1.0,) without flip against the fast path: class
+     maps agree in ≥ 0.999, mIoU within 1e-3; (3) sliding 512² tiles (18 a
+     frame); one whole-frame tile's class maps bit-equal to msf at (1.0,);
+     (4) evaluate_sharded, groups of 8 over the 9 frames (a tail group with
+     7 masked slots): the pixel count exact, mIoU within 1e-3 of
+     evaluate_main's, K1 launched exactly twice; one msf group of 8 against
+     evaluate_main's msf over the same frames; (5) cli.test over the 2 test
+     frames: two 1024×2048 palette PNGs of labelIds; (6) the u8 train wire:
+     two uint8 chunks of 4 batches (512² crops of the frames) through
+     make_train_loop on phase 11's fused models, and the same chunks
+     de-quantized on the host to bf16 through a second loop on a copy of
+     the state; each an eager chunk, a capture of its own and its replay;
+     every loss and state tensor bit-equal.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -139,8 +161,10 @@ last two lines are the kernels' JSON record and the contract line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
+import io
 import json
 import logging
 import math
@@ -160,16 +184,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from PIL import Image
+
+from structure_knowledge_distillation_tpu_torch.cli import test as test_cli
 from structure_knowledge_distillation_tpu_torch.cli import train as train_cli
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import (
+    IMG_MEAN_BGR,
     CityscapesDataset,
     SyntheticSegDataset,
     batch_iterator,
     cast_batches,
     chunk_batches,
     make_cityscapes_lists,
+    quantize_u8,
     to_nchw,
+    trainid2id,
     warm_cache,
 )
 from structure_knowledge_distillation_tpu_torch.models import (
@@ -212,8 +242,13 @@ from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
 )
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.evaluate import (
+    _tile_grid,
     evaluate_main,
+    evaluate_sharded,
+    iu_from_confusion,
     make_fast_val_fn,
+    make_msf_val_fn,
+    make_sliding_val_fn,
 )
 from structure_knowledge_distillation_tpu_torch.training.train_state import (
     KDTrainState,
@@ -235,6 +270,7 @@ FRAMES = 4
 MISMATCH_SHARE_MAX = 1e-3
 TIE_GAP_MAX = 1e-5
 K1_SPEEDUP_MIN = 20.0  # K1 against its plain version at the eval shape, f32
+K1_GROUP = 8  # evaluate_sharded's group: one K1 launch of batch 8
 # GPU vs CPU forward in full f32 (TF32 off): cuDNN and the CPU's convolutions
 # accumulate in different orders through ~20 layers
 LOGITS_REL_TOL = 1e-3
@@ -295,6 +331,13 @@ LOOP_CLI_STEPS = 14
 GRAPH_KERNELS = {"K4": "ce_fwd_interval_kernel", "K5": "ce_bwd_interval_kernel",
                  "K6": "bn_fwd_kernel", "K7": "bn_sums_kernel", "K8": "bn_bwd_kernel"}
 STEP_RANGES = ("teacher_forward", "student_loss_and_grad", "d_loss_and_grad")
+# phase 17: the other inference modes on fake 1024×2048 Cityscapes frames: 9
+# val frames (one full group of 8 in evaluate_sharded and a tail group with 7
+# masked slots) and 2 test frames; scales and tile of the reference's
+# published eval
+EM_FRAMES = (("val", 9), ("test", 2))
+EM_SCALES = (0.75, 1.0, 1.25)
+EM_TILE = (512, 512)
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100 SXM's 1.98 GHz boost clock
 PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
@@ -461,10 +504,13 @@ def phase_kernel(device: torch.device) -> dict:
           all(k["spill_stores"] == k["spill_loads"] == 0 for k in k1_ptxas),
           f"K1's ptxas report: {k1_ptxas}")
     g = torch.Generator().manual_seed(1234)
-    cases, max_gap, headline = [], 0.0, None
-    for shape, out in (((1, NUM_CLASSES, 129, 257), FULL_RES),
-                       ((2, NUM_CLASSES, 65, 65), (512, 512))):
-        for dtype in (torch.float32, torch.bfloat16):
+    cases, max_gap, headline, batch8 = [], 0.0, None, None
+    both = (torch.float32, torch.bfloat16)
+    # batch 8: evaluate_sharded's single-scale groups (phase 17)
+    for shape, out, dtypes in (((1, NUM_CLASSES, 129, 257), FULL_RES, both),
+                               ((K1_GROUP, NUM_CLASSES, 129, 257), FULL_RES, (torch.float32,)),
+                               ((2, NUM_CLASSES, 65, 65), (512, 512), both)):
+        for dtype in dtypes:
             for quantised in (False, True):
                 x = torch.randn(shape, generator=g)
                 if quantised:  # coarse grid: many exact ties after interpolation
@@ -499,21 +545,27 @@ def phase_kernel(device: torch.device) -> dict:
                               "oracle_mismatch": oracle_diff, "ms": ms, "plain_ms": plain_ms,
                               "speedup_vs_plain": plain_ms / ms,
                               "interpolate_argmax_ms": interp_argmax_ms})
-                if headline is None:  # (1,19,129,257)->(1024,2048) f32: the eval path's
+                if out == FULL_RES and not quantised and (
+                        headline is None or (shape[0] == K1_GROUP and batch8 is None)):
+                    # (N,19,129,257)->(1024,2048) f32: the eval path's
                     # separable resize (a lerp of 3 operations per sample,
                     # along H on the input's columns, then along W) and a
                     # compare per class and output pixel
                     n, c, h_in, w_in = shape
                     flops = n * c * out[0] * (3 * w_in + 3 * out[1] + out[1])
                     # no one PyTorch call upsamples and takes the argmax
-                    headline = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                                **card_bound(x.nbytes + k.nbytes, flops)}
-                    headline["bound_share"] = headline["bound_ms"] / ms
-                    check(plain_ms >= K1_SPEEDUP_MIN * ms,
-                          f"K1 {name}: {ms} ms is not {K1_SPEEDUP_MIN}x faster than the plain "
-                          f"version's {plain_ms} ms")
+                    timed = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                             **card_bound(x.nbytes + k.nbytes, flops)}
+                    timed["bound_share"] = timed["bound_ms"] / ms
+                    if headline is None:
+                        headline = timed
+                        check(plain_ms >= K1_SPEEDUP_MIN * ms,
+                              f"K1 {name}: {ms} ms is not {K1_SPEEDUP_MIN}x faster than the "
+                              f"plain version's {plain_ms} ms")
+                    else:
+                        batch8 = {"shape": list(shape), **timed}
     phase(3, "kernel", cases=cases, ptxas=k1_ptxas)
-    return {"max_abs_err": max_gap, **headline}
+    return {"max_abs_err": max_gap, **headline, "batch8": batch8}
 
 
 def _eval_frames() -> list:
@@ -1931,6 +1983,225 @@ def phase_train_loop(device: torch.device, card: str) -> dict:
     return {"stats": stats, "equivalence": equivalence, "cli": cli}
 
 
+def _sweep(run, warm=None) -> tuple:
+    """(run()'s result, host ms, launch counts, peak bytes): `warm()` first
+    (cuDNN's choices at new shapes), then every count set to 0 and the peak
+    reset just before `run()`, read just after it has synchronised."""
+    if warm is not None:
+        warm()
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, 1e3 * (time.perf_counter() - t0), read_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def _class_maps(run, frames: list, device: torch.device) -> tuple:
+    """A per-frame program (`make_*_val_fn`) over batch-1 val frames on the
+    f32 wire: ([class map on the CPU], summed int64 confusion)."""
+    maps, conf = [], np.zeros((NUM_CLASSES, NUM_CLASSES), np.int64)
+    with torch.no_grad():
+        for image, label, size, _ in frames:
+            x = to_nchw(torch.from_numpy(image).to(device))
+            lab = torch.from_numpy(label[0].astype(np.uint8)).to(device)
+            pred, frame_conf = run(x, lab, int(size[0][0]), int(size[0][1]))
+            maps.append(pred.cpu())
+            conf += frame_conf.cpu().numpy()
+    return maps, conf
+
+
+def _frame_h2d(device: torch.device, image: np.ndarray) -> dict:
+    """One eval frame host → device, CUDA events on the current stream: the
+    pageable f32 copy the fast path made before, and the pinned copies of
+    the f32 and the u8 wire that `evaluate_main` makes now; host ms of the
+    quantization and the pinning beside (medians)."""
+    current = torch.cuda.current_stream(device)
+    f32 = torch.from_numpy(image)
+    quantize_ms, u8 = _host_ms(lambda: torch.from_numpy(quantize_u8(image, IMG_MEAN_BGR)))
+    pin_f32_ms, pinned_f32 = _host_ms(f32.pin_memory)
+    pin_u8_ms, pinned_u8 = _host_ms(u8.pin_memory)
+    return {"f32_bytes": f32.nbytes, "u8_bytes": u8.nbytes,
+            "pageable_f32_ms": _copy_ms(lambda: f32.to(device), current),
+            "pinned_f32_ms": _copy_ms(lambda: pinned_f32.to(device, non_blocking=True), current),
+            "pinned_u8_ms": _copy_ms(lambda: pinned_u8.to(device, non_blocking=True), current),
+            "host_quantize_ms": quantize_ms, "host_pin_f32_ms": pin_f32_ms,
+            "host_pin_u8_ms": pin_u8_ms}
+
+
+def _per_frame(ms: float, counts: dict, peak: int, n: int, **extra) -> dict:
+    return {"ms_per_frame": ms / n, "frames": n, "max_memory_allocated": peak,
+            "launches": {k: v for k, v in counts.items() if v}, **extra}
+
+
+def _u8_train_wire(device: torch.device, root: str, val_list: str, work: str) -> dict:
+    """Two uint8 chunks of LOOP_UNROLL batches (512² crops of the fake frames,
+    random scale and mirror) through `make_train_loop` on phase 11's fused
+    models, and the same chunks de-quantized on the host to bf16 through a
+    second loop on a copy of the state: each loop an eager warm-up chunk,
+    then a capture and its replay; every loss and state tensor must agree
+    bit for bit."""
+    cfg = _train_config(unroll_steps=LOOP_UNROLL)
+    ds = CityscapesDataset(root, val_list, max_iters=2 * LOOP_UNROLL * TRAIN_BATCH,
+                           crop_size=TRAIN_CROP, seed=0, cache_dir=os.path.join(work, "cache"))
+    # the dataset repeats its records up to at least max_iters: take 2 full chunks
+    host = list(cast_batches(chunk_batches(batch_iterator(ds, TRAIN_BATCH, seed=0), LOOP_UNROLL),
+                             torch.uint8, torch.uint8, image_mean=IMG_MEAN_BGR))[:2]
+    check(all(c.n_valid == LOOP_UNROLL for c in host), "a u8 chunk is not full")
+    mean = torch.tensor(cfg.input_mean_bgr, dtype=torch.float32)
+    wires = {"u8": [(to_nchw(c.images.to(device)), c.labels.to(device)) for c in host],
+             "bf16": [(to_nchw((c.images.float() - mean).to(torch.bfloat16).to(device)),
+                       c.labels.to(device)) for c in host]}
+    state, gen = _full_state(cfg, device, bn_fused=True)
+    runs = {"u8": (state, gen),
+            "bf16": (copy.deepcopy(state), torch.Generator().set_state(gen.get_state()))}
+    out, loops = {}, {}
+    for wire, chunks in wires.items():
+        st, g = runs[wire]
+        loop = loops[wire] = make_train_loop(cfg, LOOP_UNROLL)
+        metrics, ms, counts, peak = _sweep(lambda: [loop(st, *c, LOOP_UNROLL, g) for c in chunks])
+        check(loop.eager_steps == LOOP_UNROLL and loop.captures == 1 and loop.replays == 1,
+              f"the {wire} loop: {loop.eager_steps} eager steps, {loop.captures} captures, "
+              f"{loop.replays} replays")
+        check(loop._graph.images.dtype == chunks[0][0].dtype,
+              f"the {wire} graph's static images are {loop._graph.images.dtype}")
+        check(counts["K4"] >= 1 and counts["K5"] >= 1, f"the {wire} loop launched {counts}")
+        out[wire] = {"metrics": metrics, "state": _loop_state(st),
+                     "max_memory_allocated": peak, "captures": loop.captures,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    for i, (mu, mb) in enumerate(zip(out["u8"]["metrics"], out["bf16"]["metrics"])):
+        for k in mu:
+            check(torch.equal(mu[k], mb[k]), f"chunk {i} {k}: u8 {mu[k].tolist()} vs "
+                                             f"bf16 {mb[k].tolist()}")
+    a, b = out["u8"].pop("state"), out["bf16"].pop("state")
+    check(sorted(a) == sorted(b), "the two states' keys differ")
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not unequal, f"u8 vs bf16 wire: {len(unequal)} tensors differ, first {unequal[:3]}")
+    for wire in out:
+        last = out[wire].pop("metrics")[-1]
+        out[wire]["losses_last"] = {k: float(v[-1]) for k, v in last.items()}
+        out[wire]["replay_ms_per_step"] = []
+    # then more replays of the second chunk, in turns (u8, bf16, bf16, u8)
+    for wire in ("u8", "bf16", "bf16", "u8"):
+        st, g = runs[wire]
+        ms = _timed_chunk(lambda: loops[wire](st, *wires[wire][1], LOOP_UNROLL, g))
+        out[wire]["replay_ms_per_step"].append(ms / LOOP_UNROLL)
+    check(all(lp.replays == 3 and lp.captures == 1 for lp in loops.values()),
+          "a timed chunk was not a replay")
+    return {"chunks": len(host), "bit_equal_tensors": len(a), **out}
+
+
+def phase_eval_modes(device: torch.device) -> dict:
+    """Phase 17: the inference modes beside the fast path, on phase 4's
+    student (f32) and fake 1024×2048 Cityscapes frames; the u8 image wire
+    in eval and in the multi-step train loop; `cli.test`'s submission."""
+    model = _eval_student(device)
+    with tempfile.TemporaryDirectory(prefix="skd_eval_modes_") as work:
+        root = os.path.join(work, "cityscapes")
+        write_fake_cityscapes(root, EM_FRAMES, seed=3)
+        lists = make_cityscapes_lists(root, os.path.join(work, "list"))
+        val = CityscapesDataset(root, lists["val"], crop_size=FULL_RES, scale=False, mirror=False)
+        frames = list(batch_iterator(val, 1, shuffle=False, drop_last=False))
+        n = len(frames)
+        expect = sum(int((b[1] != 255).sum()) for b in frames)  # every frame is whole
+
+        def sweep(**kw):
+            return lambda fr=frames: evaluate_main(model, fr, NUM_CLASSES, out_size=FULL_RES,
+                                                   device=device, **kw)
+
+        # 1. the fast path on both wires
+        parts = {}
+        (f32_miou, _, f32_conf), ms, counts, peak = _sweep(sweep(),
+                                                           warm=lambda: sweep()(frames[:1]))
+        parts["fast_f32"] = _per_frame(ms, counts, peak, n, miou=f32_miou)
+        (u8_miou, _, u8_conf), ms, counts, peak = _sweep(sweep(input_mean=IMG_MEAN_BGR))
+        parts["fast_u8"] = _per_frame(ms, counts, peak, n, miou=u8_miou)
+        check(np.array_equal(u8_conf, f32_conf), "the u8 wire's confusion differs from the f32's")
+        check(int(f32_conf.sum()) == expect, f"the fast path counted {int(f32_conf.sum())} pixels")
+        k1 = [parts[p]["launches"].get("K1") for p in ("fast_f32", "fast_u8")]
+        check(k1 == [n, n], f"K1 launched {k1} times on the two wires over {n} frames")
+        parts["fast_u8"]["h2d"] = _frame_h2d(device, frames[0][0])
+
+        # 2. multiscale + flip; one scale without flip against the fast path
+        (msf_miou, _, msf_conf), ms, counts, peak = _sweep(
+            sweep(scales=EM_SCALES, flip=True, input_mean=IMG_MEAN_BGR),
+            warm=lambda: sweep(scales=EM_SCALES, flip=True)(frames[:1]))
+        parts["msf"] = _per_frame(ms, counts, peak, n, scales=list(EM_SCALES), flip=True,
+                                  miou=msf_miou)
+        check(int(msf_conf.sum()) == expect, f"msf counted {int(msf_conf.sum())} pixels")
+        fast_maps, fast_conf = _class_maps(make_fast_val_fn(model, FULL_RES, NUM_CLASSES),
+                                           frames, device)
+        one_maps, one_conf = _class_maps(
+            make_msf_val_fn(model, FULL_RES, NUM_CLASSES, (1.0,), False), frames, device)
+        agree = float(np.mean([(a == b).float().mean().item()
+                               for a, b in zip(fast_maps, one_maps)]))
+        one_gap = abs(iu_from_confusion(one_conf)[0] - iu_from_confusion(fast_conf)[0])
+        check(agree >= CLASS_MAP_AGREEMENT_MIN, f"msf (1.0,) vs fast class maps agree in {agree}")
+        check(one_gap <= EVAL_MIOU_ATOL, f"msf (1.0,) vs fast mIoU differ by {one_gap}")
+        parts["msf"].update(one_scale_vs_fast_agreement=agree, one_scale_vs_fast_miou_gap=one_gap)
+
+        # 3. sliding tiles; one whole-frame tile against msf at (1.0,)
+        tiles = len(list(_tile_grid(FULL_RES, EM_TILE, 1.0 / 3.0)))
+        (sl_miou, _, sl_conf), ms, counts, peak = _sweep(
+            sweep(whole=False, tile_size=EM_TILE, input_mean=IMG_MEAN_BGR),
+            warm=lambda: sweep(whole=False, tile_size=EM_TILE)(frames[:1]))
+        parts["sliding"] = _per_frame(ms, counts, peak, n, tile=list(EM_TILE),
+                                      tiles_per_frame=tiles, miou=sl_miou)
+        check(int(sl_conf.sum()) == expect, f"sliding counted {int(sl_conf.sum())} pixels")
+        whole_maps, _ = _class_maps(make_sliding_val_fn(model, FULL_RES, FULL_RES, NUM_CLASSES),
+                                    frames, device)
+        check(all(torch.equal(a, b) for a, b in zip(whole_maps, one_maps)),
+              "one whole-frame tile's class maps differ from msf at (1.0,)")
+
+        # 4. batched groups: 8 + a tail of 1 with 7 masked slots; one msf group
+        def sharded(fr=frames, **kw):
+            return evaluate_sharded(model, fr, NUM_CLASSES, out_size=FULL_RES, batch=K1_GROUP,
+                                    input_mean=IMG_MEAN_BGR, device=device, **kw)
+
+        (sh_miou, _, sh_conf), ms, counts, peak = _sweep(sharded, warm=lambda: sharded(frames[:1]))
+        parts["sharded"] = _per_frame(ms, counts, peak, n, batch=K1_GROUP, miou=sh_miou,
+                                      miou_gap=abs(sh_miou - f32_miou))
+        check(int(sh_conf.sum()) == expect, f"the groups counted {int(sh_conf.sum())} pixels")
+        check(abs(sh_miou - f32_miou) <= EVAL_MIOU_ATOL, f"groups {sh_miou} vs frames {f32_miou}")
+        check(counts["K1"] == 2, f"K1 launched {counts['K1']} times for two groups")
+        group = frames[:K1_GROUP]
+        (shm_miou, _, shm_conf), ms, counts, peak = _sweep(
+            lambda: sharded(group, scales=EM_SCALES, flip=True),
+            warm=lambda: sharded(group[:1], scales=EM_SCALES, flip=True))
+        msf_group_miou, _, _ = sweep(scales=EM_SCALES, flip=True)(group)
+        parts["sharded_msf"] = _per_frame(ms, counts, peak, len(group), batch=K1_GROUP,
+                                          miou=shm_miou, miou_gap=abs(shm_miou - msf_group_miou))
+        check(int(shm_conf.sum()) == sum(int((b[1] != 255).sum()) for b in group),
+              f"the msf group counted {int(shm_conf.sum())} pixels")
+        check(abs(shm_miou - msf_group_miou) <= EVAL_MIOU_ATOL,
+              f"msf group {shm_miou} vs frames {msf_group_miou}")
+
+        # 5. the test-server submission
+        out_dir = os.path.join(work, "submission")
+        argv = ["--data-dir", root, "--data-list", lists["test"], "--output-dir", out_dir,
+                "--device", device.type]
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints its config
+            _, ms, counts, peak = _sweep(lambda: test_cli.main(argv))
+        pngs = sorted(os.listdir(out_dir))
+        label_ids = set(trainid2id(np.arange(NUM_CLASSES, dtype=np.uint8)).tolist())
+        check(len(pngs) == dict(EM_FRAMES)["test"], f"cli.test wrote {pngs}")
+        for name in pngs:
+            with Image.open(os.path.join(out_dir, name)) as im:
+                png = np.asarray(im)
+                check(im.mode == "P" and png.shape == FULL_RES, f"{name}: {im.mode} {png.shape}")
+            check(set(np.unique(png).tolist()) <= label_ids, f"{name} holds non-labelIds")
+        parts["cli_test"] = _per_frame(ms, counts, peak, len(pngs), pngs=pngs,
+                                       note="model build and PNG writes included")
+
+        # 6. the u8 train wire in the multi-step loop
+        parts["u8_train_loop"] = _u8_train_wire(device, root, lists["val"], work)
+    for name, fields in parts.items():
+        phase(17, f"eval_modes/{name}", **fields)
+    return parts
+
+
 def main() -> int:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1950,6 +2221,7 @@ def main() -> int:
     k9 = phase_conv3x3_probe(device)
     phase_train_cityscapes(device, card, train["ms_per_step"])
     phase_train_loop(device, card)
+    eval_modes = phase_eval_modes(device)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
@@ -1963,8 +2235,10 @@ def main() -> int:
                    "running max whose first index wins"),
         # max_abs_err, for an argmax: the largest logit gap between the two
         # classes chosen where kernel and plain version disagree (0.0 where
-        # they never do)
+        # they never do); batch8: evaluate_sharded's group, timed in phase 3
         **k1,
+        "eval_modes_launches": {p: eval_modes[p]["launches"].get("K1", 0)
+                                for p in ("fast_f32", "fast_u8", "sharded")},
     }]
     ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
     pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"

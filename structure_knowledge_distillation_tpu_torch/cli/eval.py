@@ -6,8 +6,12 @@
 
 Counterpart of `structure_knowledge_distillation_tpu/cli/eval.py`, with the
 same flags plus `--device` (default `cuda`; a host without CUDA needs
-`--device cpu`). Ported so far: Cityscapes, the ResNet-18 PSPNet student and
-the single-device whole-image single-scale sweep. The port reads `.pth`
+`--device cpu`). Ported: Cityscapes, the ResNet-18 PSPNet student and every
+single-device sweep: whole-image single-scale, multiscale+flip (`--scales
+0.75,1.0,1.25 --flip true`) and sliding tiles (`--whole false --tile-size
+512,512`). `--num-data-shards` > 1 is ROADMAP Queue A item 8 (DDP) and
+`--num-spatial-shards` > 1 is not ported (XLA's halo exchange); both raise.
+The port reads `.pth`
 checkpoints only; a JAX `.msgpack` checkpoint crosses over as the state dict
 that the JAX package's `export_torch_respspnet` writes. Without
 `--resume-from` the student keeps seeded random weights (seed 0).
@@ -27,13 +31,14 @@ from structure_knowledge_distillation_tpu_torch.data import (
 )
 from structure_knowledge_distillation_tpu_torch.models import student_model
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
-from structure_knowledge_distillation_tpu_torch.training.evaluate import (
-    SHARDED_ITEM,
-    evaluate_main,
-)
+from structure_knowledge_distillation_tpu_torch.training.evaluate import evaluate_main
 
-DATASET_ITEM = "VOC and CamVid eval are ROADMAP Queue A item 'VOC/CamVid/ESPNet'"
-ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 'VOC/CamVid/ESPNet'"
+DATASET_ITEM = "VOC and CamVid eval are ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
+ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
+SHARDED_ITEM = ("the val sweep sharded across devices is ROADMAP Queue A item 8 'DDP' "
+                "(the port runs on one card)")
+SPATIAL_ITEM = ("height-sharded eval (evaluate_spatial, XLA's halo exchange) is ROADMAP "
+                "'Not ported'")
 
 
 def str2bool(v: str) -> bool:
@@ -44,6 +49,21 @@ def str2bool(v: str) -> bool:
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def load_student(num_classes: int, device: torch.device, resume_from: str) -> torch.nn.Module:
+    """The R18 student in eval mode on `device`: seeded random weights (seed
+    0), or a reference-named `.pth` state dict from `resume_from`. A CUDA
+    device without CUDA and a JAX `.msgpack` raise."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device on this host; pass --device cpu")
+    if resume_from.endswith(".msgpack"):
+        raise ValueError("the port reads .pth checkpoints only; convert a JAX "
+                         ".msgpack with export_torch_respspnet and torch.save")
+    model = student_model(num_classes, device=device, generator=torch.Generator().manual_seed(0))
+    if resume_from:
+        ckpt_io.load_reference_state_dict(model, ckpt_io.load_torch_state_dict(resume_from))
+    return model.eval()
 
 
 def main(argv=None):
@@ -64,7 +84,8 @@ def main(argv=None):
     p.add_argument("--eval-size", default="", type=str,
                    help="H,W; empty = dataset default")
     p.add_argument("--tile-size", default="512,512", type=str,
-                   help="H,W sliding tile for --whole false (not ported yet)")
+                   help="H,W sliding tile for --whole false (reference input_size, "
+                        "networks/evaluate.py:163)")
     p.add_argument("--num-data-shards", default=1, type=int)
     p.add_argument("--num-spatial-shards", default=1, type=int)
     p.add_argument("--device", default="cuda", type=str,
@@ -75,25 +96,16 @@ def main(argv=None):
         raise NotImplementedError(DATASET_ITEM)
     if args.student_arch != "resnet18":
         raise NotImplementedError(ESPNET_ITEM)
-    if args.num_data_shards > 1 or args.num_spatial_shards > 1:
+    if args.num_data_shards > 1:
         raise NotImplementedError(SHARDED_ITEM)
+    if args.num_spatial_shards > 1:
+        raise NotImplementedError(SPATIAL_ITEM)
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device on this host; pass --device cpu")
-    if args.resume_from.endswith(".msgpack"):
-        raise ValueError("the port reads .pth checkpoints only; convert a JAX "
-                         ".msgpack with export_torch_respspnet and torch.save")
-
     default_size, default_classes = DATASET_EVAL_DEFAULTS[args.data_set]
     out_h, out_w = (map(int, args.eval_size.split(","))
                     if args.eval_size else default_size)
     num_classes = args.classes_num or default_classes
-
-    model = student_model(num_classes, device=device,
-                          generator=torch.Generator().manual_seed(0))
-    if args.resume_from:
-        ckpt_io.load_reference_state_dict(model, ckpt_io.load_torch_state_dict(args.resume_from))
-    model.eval()
+    model = load_student(num_classes, device, args.resume_from)
 
     ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(out_h, out_w),
                            scale=False, mirror=False)
@@ -101,6 +113,7 @@ def main(argv=None):
     mean_iu, iu_array, _ = evaluate_main(
         model, loader, num_classes, out_size=(out_h, out_w), eval_type="val",
         output_dir=args.output_dir or None, whole=args.whole,
+        tile_size=tuple(map(int, args.tile_size.split(","))),
         scales=tuple(float(s) for s in args.scales.split(",")), flip=args.flip,
         device=device,
     )

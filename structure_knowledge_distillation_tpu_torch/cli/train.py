@@ -23,7 +23,8 @@ full state saved there.
 
 Batches come from the host batcher (with `--num-workers` processes), are
 narrowed to bf16 images under bf16 compute and uint8 labels (unless
-`--wire-format f32`), and reach the device through `device_prefetch`. With
+`--wire-format f32`; `--wire-format u8` sends Cityscapes images as their
+original bytes), and reach the device through `device_prefetch`. With
 `--unroll-steps K > 1` they are stacked into chunks of K steps on the host
 first (`chunk_batches`), so one pinned copy moves a chunk, and the trainer
 runs each full chunk as one CUDA-graph replay on the card. `--profile-dir`
@@ -147,16 +148,23 @@ def main(argv=None) -> float:
     if trainer.state.step:
         host_iter = itertools.islice(host_batches, max(0, cfg.num_steps - trainer.state.step))
     # narrow the host→device wire: bf16 images are what the model's first op
-    # makes of f32 ones; uint8 labels fit ≤ 254 classes + ignore 255
-    image_dtype = (torch.bfloat16 if cfg.wire_format != "f32" and cfg.compute_dtype == "bfloat16"
-                   else None)
+    # makes of f32 ones; uint8 labels fit ≤ 254 classes + ignore 255;
+    # --wire-format u8 sends the images' original bytes (the train step
+    # subtracts the mean on the device), except on synthetic data, whose
+    # images are not integer−mean (the JAX CLI's rule): bf16 there
+    image_dtype, image_mean = None, None
+    if cfg.wire_format == "u8" and cfg.data_set != "synthetic":
+        image_dtype, image_mean = torch.uint8, cfg.input_mean_bgr
+    elif cfg.wire_format != "f32" and cfg.compute_dtype == "bfloat16":
+        image_dtype = torch.bfloat16
     label_dtype = (torch.uint8 if cfg.classes_num <= 254 and cfg.ignore_label <= 255
                    and cfg.wire_format != "f32" else None)
     if trainer.unroll > 1:
         # stack the chunks on the host, then one transfer per chunk; the
         # islice above still counts steps
         host_iter = chunk_batches(host_iter, trainer.unroll)
-    train_iter = device_prefetch(cast_batches(host_iter, image_dtype, label_dtype), cfg.device)
+    train_iter = device_prefetch(cast_batches(host_iter, image_dtype, label_dtype, image_mean),
+                                 cfg.device)
 
     def val_loader():
         return batch_iterator(val_ds, 1, shuffle=False)

@@ -15,8 +15,14 @@ naming their ROADMAP item when set to anything but their default; the
 reference's GPU-era flags (`--gpu`, `--parallel`, `--is-training`,
 `--recurrence`) stay accepted and ignored, and so does `stem_s2d`, a TPU
 layout whose parameters are the plain conv's. `wire_format` auto narrows the
-train batches to bf16 images (under bf16 compute) and uint8 labels, f32 keeps
-them as the dataset makes them; u8 raises.
+train batches to bf16 images (under bf16 compute) and uint8 labels, u8 sends
+the images as their original bytes (a dataset of integer−mean frames only;
+synthetic keeps bf16, as in the JAX package), f32 keeps them as the dataset
+makes them. `scales`/`flip` select the in-training eval's multiscale+flip
+sweep.
+
+`TestConfig` is the JAX `TestConfig` (reference TrainOptionsForTest) with
+the same `device` field.
 """
 
 from __future__ import annotations
@@ -26,11 +32,10 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["TrainConfig", "str2bool"]
+__all__ = ["TestConfig", "TrainConfig", "str2bool"]
 
 _ITEM7 = "ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 _ITEM8 = "ROADMAP Queue A item 8 'DDP'"
-_ITEM4 = "ROADMAP Queue A item 4 'msf/sliding/sharded eval'"
 _NOT_PORTED = "ROADMAP 'Not ported' (a TPU measure)"
 
 
@@ -153,9 +158,6 @@ class TrainConfig:
             (self.remat, f"--remat (torch.utils.checkpoint) is {_ITEM7}"),
             (max(self.num_data_shards, self.num_model_shards, self.num_slices,
                  self.num_spatial_shards) > 1, f"multi-device meshes are {_ITEM8}"),
-            (self.wire_format == "u8", f"the u8 image wire is {_ITEM4}"),
-            (tuple(self.scales) != (1.0,) or self.flip,
-             f"multiscale/flip in-training eval is {_ITEM4}"),
             (self.flat_sgd, f"flat_sgd is {_NOT_PORTED}"),
         )
         for failing, why in checks:
@@ -279,3 +281,46 @@ class TrainConfig:
             elif key in field_names:
                 kwargs[key] = val
         return cls(**kwargs)
+
+
+@dataclass
+class TestConfig:
+    """The test-set sweep's options: the JAX `TestConfig` (reference
+    TrainOptionsForTest, train_options.py:86-94), the same fields, flags and
+    defaults, plus `device` (`--device`, default `cuda`)."""
+
+    __test__ = False  # not a pytest test class
+
+    data_dir: str = ""
+    data_list: str = "dataset/list/cityscapes/test.lst"
+    resume_from: str = ""
+    classes_num: int = 19
+    output_dir: str = "outputs"
+    whole: bool = True  # whole-image vs sliding-tile inference
+    flip: bool = False  # flip-average
+    scales: Tuple[float, ...] = (1.0,)  # multi-scale averaging
+    data_set: str = "cityscapes"  # cityscapes | voc
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.data_set == "voc":
+            raise NotImplementedError(f"the VOC test sweep is {_ITEM7}")
+
+    @classmethod
+    def from_args(cls, argv: Optional[list] = None) -> "TestConfig":
+        p = argparse.ArgumentParser(description="knowledge-distillation test (PyTorch/CUDA)")
+        p.add_argument("--data-set", default=cls.data_set, type=str)
+        p.add_argument("--data-dir", default="", type=str)
+        p.add_argument("--data-list", default=cls.data_list, type=str)
+        p.add_argument("--resume-from", default="", type=str)
+        p.add_argument("--classes_num", default=19, type=int)
+        p.add_argument("--output-dir", default="outputs", type=str)
+        p.add_argument("--whole", default=True, type=str2bool)
+        p.add_argument("--flip", default=False, type=str2bool)
+        p.add_argument("--scales", default="1.0", type=str,
+                       help="comma-separated, e.g. 0.75,1.0,1.25")
+        p.add_argument("--device", default=cls.device, type=str,
+                       help="torch device; a host without CUDA needs --device cpu")
+        kw = vars(p.parse_args(argv))
+        kw["scales"] = tuple(float(s) for s in kw["scales"].split(","))
+        return cls(**kw)

@@ -2,6 +2,7 @@ from structure_knowledge_distillation_tpu_torch.data.cache import cached_decode,
 from structure_knowledge_distillation_tpu_torch.data.cityscapes import (
     IMG_MEAN_BGR,
     CityscapesDataset,
+    CityscapesTestDataset,
     batch_iterator,
     id2trainid,
     trainid2id,
@@ -12,6 +13,7 @@ from structure_knowledge_distillation_tpu_torch.data.prefetch import (
     cast_batches,
     chunk_batches,
     device_prefetch,
+    quantize_u8,
     to_nchw,
 )
 from structure_knowledge_distillation_tpu_torch.data.synthetic import SyntheticSegDataset
@@ -32,6 +34,7 @@ __all__ = [
     "IMG_MEAN_BGR",
     "Chunk",
     "CityscapesDataset",
+    "CityscapesTestDataset",
     "batch_iterator",
     "cached_decode",
     "cast_batches",
@@ -40,6 +43,7 @@ __all__ = [
     "ensure_list",
     "id2trainid",
     "make_cityscapes_lists",
+    "quantize_u8",
     "to_nchw",
     "trainid2id",
     "warm_cache",

@@ -12,10 +12,11 @@ Counterpart of `structure_knowledge_distillation_tpu/data/cityscapes.py`
     JAX package's order, on the numpy path and on the native (C++) path
     alike, so both packages make the same crops for the same seed.
 
-Samples stay HWC float32 / HW int32 numpy arrays, as in the JAX package; the
-transpose to NCHW happens on the device. Images decode with cv2 when it is
-installed, else PIL (and so does the numpy path's resize); a decode cache
-(`data/cache.py`) can keep each decoded frame as an mmap'd .npy.
+`CityscapesTestDataset` is the label-less test split (mean subtraction and
+padding only). Samples stay HWC float32 / HW int32 numpy arrays, as in the
+JAX package; the transpose to NCHW happens on the device. Images decode with
+cv2 when it is installed, else PIL (and so does the numpy path's resize); a
+decode cache (`data/cache.py`) can keep each decoded frame as an mmap'd .npy.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "id2trainid",
     "trainid2id",
     "CityscapesDataset",
+    "CityscapesTestDataset",
     "batch_iterator",
 ]
 
@@ -249,6 +251,32 @@ class CityscapesDataset:
             flip, self.mean, ID_TO_TRAINID_LUT, self.ignore_label,
         )
         return out_img, out_label, size, rec.name
+
+
+class CityscapesTestDataset:
+    """Full-resolution test frames without labels: mean subtraction and zero
+    padding up to the crop only (reference datasets.py:212-250); items are
+    (image HWC float32, size, name)."""
+
+    def __init__(self, root: str, list_path: str, crop_size: Tuple[int, int] = (1024, 2048),
+                 mean: np.ndarray = IMG_MEAN_BGR):
+        self.records = _parse_lst(root, list_path, with_labels=False)
+        self.crop_h, self.crop_w = crop_size
+        self.mean = np.asarray(mean, np.float32)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __getitem__(self, index: int):
+        rec = self.records[index]
+        image = _imread_color(rec.img)
+        size = np.array(image.shape)
+        image = image.astype(np.float32) - self.mean
+        pad_h = max(self.crop_h - image.shape[0], 0)
+        pad_w = max(self.crop_w - image.shape[1], 0)
+        if pad_h > 0 or pad_w > 0:
+            image = np.pad(image, ((0, pad_h), (0, pad_w), (0, 0)), constant_values=0.0)
+        return np.ascontiguousarray(image, np.float32), size, rec.name
 
 
 _WORKER_DATASET = None

@@ -16,9 +16,10 @@ device while the current step runs:
   * `chunk_batches` stacks `unroll` per-step batches into one `Chunk` on the
     host, for the multi-step loop (`training/train_step.py::
     make_train_loop`): both functions above carry a `Chunk` whole, so its
-    `(unroll, N, ...)` stack crosses to the device in one pinned copy.
-
-The u8 image wire (`quantize_u8`) is ROADMAP Queue A item 4.
+    `(unroll, N, ...)` stack crosses to the device in one pinned copy;
+  * `quantize_u8` is the u8 image wire: mean-subtracted f32 images go back
+    to their original bytes (a quarter of the f32 bytes); the train step and
+    the eval programs subtract the mean again on the device.
 """
 
 from __future__ import annotations
@@ -30,7 +31,28 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["Chunk", "cast_batches", "chunk_batches", "device_prefetch", "to_nchw"]
+__all__ = ["Chunk", "cast_batches", "chunk_batches", "device_prefetch", "quantize_u8",
+           "to_nchw"]
+
+
+def quantize_u8(images, mean) -> np.ndarray:
+    """Re-quantize mean-subtracted f32 images (numpy, NHWC) to their
+    original bytes, as the JAX `quantize_u8`: one f32 add of mean + 0.5 and
+    a truncating cast, i.e. round half up. Integer−mean pixels (every
+    unscaled, unpadded frame) come back exactly; pad pixels (0.0, "exactly
+    the mean", which no byte holds) round by < 0.5. The one quantizer of the
+    train wire (`cast_batches`) and the eval wire (`training/evaluate.py`).
+
+    The same f32 add and cast per element as JAX's expression, over rows of
+    W·C values against the mean tiled along a row, written straight into
+    the uint8 result: broadcasting the C-vector over the last axis made
+    numpy loop 3 values at a time, several times slower on a full frame."""
+    images = np.asarray(images, np.float32)
+    mean05 = np.asarray(mean, np.float32) + np.float32(0.5)
+    rows = images.reshape(*images.shape[:-2], -1)
+    out = np.empty(rows.shape, np.uint8)
+    np.add(rows, np.tile(mean05, images.shape[-2]), out=out, casting="unsafe")
+    return out.reshape(images.shape)
 
 
 def _host_tensor(x) -> torch.Tensor:
@@ -78,15 +100,19 @@ def chunk_batches(iterator: Iterator, unroll: int) -> Iterator[Chunk]:
 
 
 def cast_batches(iterator: Iterator, image_dtype: Optional[torch.dtype] = None,
-                 label_dtype: Optional[torch.dtype] = None) -> Iterator:
+                 label_dtype: Optional[torch.dtype] = None, image_mean=None) -> Iterator:
     """Cast the images and labels of (images, labels, ...) batches, or of
     `Chunk`s, on the host; they come out as CPU tensors of the given dtypes
     (None keeps a field as it is). f32 → bf16 rounds to nearest even, as
     `ml_dtypes` does in the JAX package; the train step widens uint8 labels
-    to int32 on the device."""
+    to int32 on the device. With `image_mean` set and `image_dtype` uint8,
+    the images go through `quantize_u8` (the u8 wire), and the train step
+    subtracts the mean again on the device."""
     for batch in iterator:
         images, labels = batch[0], batch[1]
-        if image_dtype is not None:
+        if image_mean is not None and image_dtype == torch.uint8:
+            images = torch.from_numpy(quantize_u8(images, image_mean))
+        elif image_dtype is not None:
             images = _host_tensor(images).to(image_dtype)
         if label_dtype is not None:
             labels = _host_tensor(labels).to(label_dtype)

@@ -59,6 +59,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch.profiler import record_function
 
+from structure_knowledge_distillation_tpu_torch.data.cityscapes import IMG_MEAN_BGR
 from structure_knowledge_distillation_tpu_torch.losses import (
     adv_loss_for_d,
     adv_loss_for_g,
@@ -205,8 +206,26 @@ def _make_body(cfg) -> Callable:
         params = [p for p in module.parameters() if p.requires_grad]
         sgd_update(opt, params, torch.autograd.grad(loss, params), lr)
 
+    # the u8 wire's mean, made once here and copied to a device at the first
+    # eager step there: a captured chunk always follows an eager one on its
+    # device, so the graph reads this copy by address and never makes one (a
+    # pageable host→device copy, which a capture refuses)
+    mean_bgr = torch.tensor(getattr(cfg, "input_mean_bgr", IMG_MEAN_BGR),
+                            dtype=torch.float32).view(3, 1, 1)
+    device_means: Dict[torch.device, torch.Tensor] = {}
+
+    def image_mean(device: torch.device) -> torch.Tensor:
+        if device not in device_means:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the u8 wire's mean is not on the device before the capture")
+            device_means[device] = mean_bgr.to(device)
+        return device_means[device]
+
     def step(state, images, labels, draws, lr_g, lr_d, alpha) -> Metrics:
         labels = labels.to(torch.int32)
+        if images.dtype == torch.uint8:
+            # u8 wire (data.prefetch.quantize_u8): the raw bytes, mean added back
+            images = images.float() - image_mean(images.device)
         teacher, student, disc = state.teacher, state.student, state.discriminator
         teacher.eval()
         student.train()
@@ -261,12 +280,13 @@ def _run_eager(run_steps, state, images_k, labels_k, n_valid, unroll, generator,
 
 def make_train_step(cfg) -> Callable:
     """The train step for a TrainConfig: `train_step(state, images, labels,
-    generator=None, alpha=None)` takes (N, 3, H, W) float images (f32, or
-    bf16 from the narrowed wire) and (N, H, W) integer labels (int32, or
-    uint8 from the wire, widened to int32 on the device first, as the JAX
-    step does) on the models' device, updates `state` in place and returns
-    its metrics as 0-dim f32 tensors. It is the multi-step loop's eager path
-    with one step."""
+    generator=None, alpha=None)` takes (N, 3, H, W) images (f32, bf16 from
+    the narrowed wire, or uint8 from the u8 wire, which becomes f32 minus
+    `cfg.input_mean_bgr` on the device before the model's own cast) and
+    (N, H, W) integer labels (int32, or uint8 from the wire, widened to
+    int32 on the device first, as the JAX step does) on the models' device,
+    updates `state` in place and returns its metrics as 0-dim f32 tensors.
+    It is the multi-step loop's eager path with one step."""
     run_steps = _make_body(cfg)
 
     def train_step(state: KDTrainState, images: torch.Tensor, labels: torch.Tensor,

@@ -312,12 +312,23 @@ class KDTrainer:
         return self.best_mean_iu
 
     def evaluate(self, val_loader: Iterable, out_size=(1024, 2048)):
-        """The student's whole-image val sweep; returns (mean_IU, IU_array)."""
+        """The student's whole-image val sweep; returns (mean_IU, IU_array).
+
+        As the JAX trainer's: the frames cross on the u8 image wire unless
+        `wire_format` is f32, for Cityscapes and CamVid, whose unscaled,
+        unpadded val frames are integer−mean (synthetic images are not, so
+        they keep the f32 wire); `cfg.scales`/`cfg.flip` select the
+        multiscale+flip sweep."""
+        cfg = self.cfg
+        input_mean = None
+        if cfg.wire_format != "f32" and cfg.data_set in ("cityscapes", "cityscape", "camvid"):
+            input_mean = np.asarray(cfg.input_mean_bgr, np.float32)
         self.student.eval()
         try:
             mean_iu, iu_array, _ = evaluate_main(
-                self.student, val_loader, self.cfg.classes_num, out_size=tuple(out_size),
-                ignore_label=self.cfg.ignore_label, device=self.device)
+                self.student, val_loader, cfg.classes_num, out_size=tuple(out_size),
+                scales=tuple(cfg.scales) or (1.0,), flip=bool(cfg.flip),
+                ignore_label=cfg.ignore_label, input_mean=input_mean, device=self.device)
         finally:
             self.student.train()
         return mean_iu, iu_array

@@ -650,6 +650,37 @@ def test_train_loop_refuses_a_fed_alpha_on_the_card(cuda_device):
     assert state.step == 0 and loop.eager_steps == 0
 
 
+def test_train_loop_u8_wire_equals_host_dequantized(exact_cuda):
+    """uint8 chunks (the u8 wire) through an eager chunk, a capture of their
+    own and its replay: bit for bit the same metrics and state as the same
+    chunks de-quantized on the host, through a second loop on a copy of the
+    state. The step's mean is on the card before the capture reads it."""
+    cfg = _loop_cfg()
+    state, gen = _loop_state(exact_cuda), torch.Generator().manual_seed(3)
+    ref, ref_gen = copy.deepcopy(state), torch.Generator().set_state(gen.get_state())
+    rng = np.random.RandomState(6)
+    mean = torch.tensor(cfg.input_mean_bgr, dtype=torch.float32).view(3, 1, 1)
+    u8, f32 = [], []
+    for _ in range(2):
+        images = torch.from_numpy(rng.randint(0, 256, (LOOP_K, 2, 3, 256, 256)).astype(np.uint8))
+        labels = torch.from_numpy(rng.randint(0, 7, (LOOP_K, 2, 256, 256)).astype(np.uint8))
+        u8.append((images.to(exact_cuda), labels.to(exact_cuda)))
+        f32.append(((images.float() - mean).to(exact_cuda), labels.to(exact_cuda)))
+    loop, ref_loop = make_train_loop(cfg, LOOP_K), make_train_loop(cfg, LOOP_K)
+    got = [loop(state, *c, LOOP_K, gen) for c in u8]
+    want = [ref_loop(ref, *c, LOOP_K, ref_gen) for c in f32]
+    torch.cuda.synchronize()
+    assert (loop.captures, loop.replays) == (ref_loop.captures, ref_loop.replays) == (1, 1)
+    assert loop.graph is not None and loop.static_scalars is not None
+    for g, w in zip(got, want):
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    for attr in ("student", "discriminator"):
+        a, b = getattr(state, attr).state_dict(), getattr(ref, attr).state_dict()
+        for k in b:
+            assert torch.equal(a[k], b[k]), (attr, k)
+
+
 class _SyncingStudent(ResPSPNet):
     """A student whose forward reads a value back to the host: legal in an
     eager step, refused while a CUDA graph is captured."""

@@ -167,10 +167,10 @@ def test_cli_eval_refuses_what_is_not_ported(tmp_path):
     base = ["--data-dir", str(tmp_path), "--data-list", lst, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(base + ["--data-set", "voc"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
         port_cli.main(base + ["--num-data-shards", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(base + ["--eval-size", "64,128", "--flip", "true"])
+    with pytest.raises(NotImplementedError, match="ROADMAP 'Not ported'"):
+        port_cli.main(base + ["--num-spatial-shards", "2"])
     with pytest.raises(ValueError, match=".pth"):
         port_cli.main(base + ["--resume-from", "x.msgpack"])
     if not torch.cuda.is_available():

@@ -304,12 +304,30 @@ def test_cli_train_synthetic_unrolled(tmp_path):
     (["--ohem", "true"], "item 7"),
     (["--student-arch", "espnet"], "item 7"),
     (["--remat", "true"], "item 7"),
-    (["--flip", "true"], "item 4"),
     (["--num-data-shards", "2"], "item 8"),
-    (["--wire-format", "u8"], "item 4"),
     (["--data-set", "voc"], "item 7"),
 ])
 def test_cli_train_unported_options_raise_naming_roadmap(flags, item):
     argv = SMALL + flags
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         port_cli.main(argv)
+
+
+@pytest.mark.parametrize("flags", [["--flip", "true"], ["--wire-format", "u8"]],
+                         ids=["flip", "wire-u8"])
+def test_cli_train_runs_with_eval_and_wire_options(tmp_path, flags):
+    """Options that used to raise: `--flip true` makes the in-training eval
+    the flip-averaged sweep; `--wire-format u8` on synthetic data keeps the
+    bf16 image wire (synthetic images are not integer−mean), as the JAX CLI
+    does. Two steps and the eval, with finite losses."""
+    best = port_cli.main(SMALL + flags + ["--log-path", str(tmp_path / "log"),
+                                          "--snapshot-dir", str(tmp_path / "snap"),
+                                          "--S_ckpt_path", str(tmp_path / "student")])
+    with open(tmp_path / "log" / "scalars.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "g_loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    for r in steps:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert [r["step"] for r in rows if "val_mean_iu" in r] == [1]
+    assert 0.0 <= best <= 1.0

@@ -326,7 +326,9 @@ def test_cli_resume_trains_only_the_remaining_steps(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(S_resume=True), dict(D_resume=True), dict(last_step=5),
                                 dict(num_workers=4), dict(decode_cache_dir="cache"),
-                                dict(profile_dir="prof"), dict(unroll_steps=2)])
+                                dict(profile_dir="prof"), dict(unroll_steps=2),
+                                dict(wire_format="u8"), dict(scales=(0.75, 1.0, 1.25)),
+                                dict(flip=True)])
 def test_config_accepts_the_ported_options(kw):
     cfg = TrainConfig(**kw)
     for k, v in kw.items():

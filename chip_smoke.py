@@ -9,10 +9,12 @@ at the reference recipe, both again with the fused ABN (`bn_fused=True`,
 kernels K6–K8), the conv3x3 probe (K9), the whole training run through
 the train CLI from Cityscapes-shaped frames on disk (loader workers,
 prefetch, checkpoints, SIGTERM and resume), the multi-step loop as
-CUDA-graph replays (`--unroll-steps`), and the other inference modes
+CUDA-graph replays (`--unroll-steps`), the other inference modes
 (multiscale+flip, sliding tiles, batched groups, the u8 image wire, the
-test-set submission of `cli.test`). Each phase prints one line (phase 17
-one a part) and any failure ends the run with a non-zero exit:
+test-set submission of `cli.test`), and the CamVid ESPNet-C distillation
+recipe with OHEM, `--remat` and the VOC CLIs. Each phase prints one line
+(phases 17 and 18 one a part) and any failure ends the run with a non-zero
+exit:
 
   1. device: CUDA must be available; prints the card's name and power limit,
      the torch/CUDA versions and the TF32 flags as set;
@@ -148,7 +150,32 @@ one a part) and any failure ends the run with a non-zero exit:
      make_train_loop on phase 11's fused models, and the same chunks
      de-quantized on the host to bf16 through a second loop on a copy of
      the state; each an eager chunk, a capture of its own and its replay;
-     every loss and state tensor bit-equal.
+     every loss and state tensor bit-equal;
+ 18. camvid_espnet: the CamVid ESPNet-C recipe (scripts/run_camvid_espnet.sh)
+     at full width, one line a part: (1) the R101 teacher and the ESPNet-C
+     student (p=2, q=8) at 11 classes, batch 8, 360×480, bf16, Pi+Pa, ho
+     false: after the loop's eager warm-up chunk (unroll 4), a copy of the
+     state takes 4 eager steps while the loop captures and replays the same
+     chunk (phase 16's rules); one step launches exactly 2 K2 and 2 K3
+     (heads 45×60 and 90×120, from the teacher's 46×61 grid resized to the
+     student's 45×60) and no K4/K5, and a step draws no uniform; eager and
+     replay ms per step, img/s, peak memory; one eager ho step (wgan-gp, D
+     at image_size 46 on the 45×60 logits) with finite losses; (2) K2/K3 at
+     the two CamVid head shapes against their plain versions (phase 7's
+     tolerances and bound), per head and summed per step; (3) phase 9's
+     GPU-vs-CPU step with the full ESPNet-C (7 classes) as the student at
+     256²; (4) an R18 step at the reference recipe with OHEM (min_kept
+     100000: k = 1562), eager and as a replay, and `criterion_ohem_dsn` on
+     the card against the CPU, its threshold printed; (5) an R18 step with
+     and without `remat` from copies of one state: phase 16's rules, the
+     running statistics moved once; the ms, peak memory, the peak of each
+     interval between module forwards and the bytes a student forward holds
+     for its backward, of each; (6) `cli.train` on a fake
+     CamVid tree (360×480 PNGs, void class 11) with the recipe's flags and
+     --unroll-steps 4 (an eager chunk, a capture and its replay, the eval at
+     360×480: K1 once a val frame), the CamVid u8 eval wire's confusion
+     equal to the f32 one, `cli.eval --data-set voc` (R18 at 21 classes,
+     505×505) and `cli.test --data-set voc` (one class-id PNG a test id).
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -186,11 +213,14 @@ import torch.nn.functional as F
 
 from PIL import Image
 
+from structure_knowledge_distillation_tpu_torch.cli import eval as eval_cli
 from structure_knowledge_distillation_tpu_torch.cli import test as test_cli
 from structure_knowledge_distillation_tpu_torch.cli import train as train_cli
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import (
+    CAMVID_MEAN,
     IMG_MEAN_BGR,
+    CamVidDataset,
     CityscapesDataset,
     SyntheticSegDataset,
     batch_iterator,
@@ -206,10 +236,12 @@ from structure_knowledge_distillation_tpu_torch.models import (
     BASIC,
     BOTTLENECK,
     Discriminator,
+    ESPNetC,
     ResPSPNet,
     student_model,
     teacher_model,
 )
+from structure_knowledge_distillation_tpu_torch.losses.ohem import criterion_ohem_dsn, ohem_threshold
 from structure_knowledge_distillation_tpu_torch.ops import _build, fused_bn
 from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
     ABN,
@@ -253,6 +285,7 @@ from structure_knowledge_distillation_tpu_torch.training.evaluate import (
 from structure_knowledge_distillation_tpu_torch.training.train_state import (
     KDTrainState,
     make_sgd,
+    momentum_buffers,
     poly_schedule,
 )
 from structure_knowledge_distillation_tpu_torch.training.train_step import (
@@ -913,13 +946,16 @@ def phase_train_fused(device: torch.device, unfused: dict) -> dict:
     return {"launches": launches}
 
 
-def _small_state(device, sd=None, bn_fused: bool = False) -> KDTrainState:
+def _small_state(device, sd=None, bn_fused: bool = False, espnet: bool = False) -> KDTrainState:
+    """Phase 9's small teacher and D with the small R18 student, or with the
+    full ESPNet-C (p=2, q=8) as the student."""
     cfg = _small_config(device)
     g = torch.Generator().manual_seed(11)
     teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0,
                         generator=g, bn_fused=bn_fused)
-    student = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, generator=g,
-                        bn_fused=bn_fused)
+    student = (ESPNetC(7, generator=g) if espnet else
+               ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, generator=g,
+                         bn_fused=bn_fused))
     disc = Discriminator(7, 1, 33, 16, generator=g)
     if sd is not None:
         for model, state in zip((teacher, student, disc), sd):
@@ -944,15 +980,19 @@ def _small_config(device) -> TrainConfig:
                        device=str(device))
 
 
-def phase_train_gpu_vs_cpu(device: torch.device, bn_fused: bool = False) -> None:
+def _gpu_vs_cpu_step(device: torch.device, bn_fused: bool = False,
+                     espnet: bool = False) -> dict:
+    """One f32 step (TF32 off) of `_small_state` on the card and on the CPU
+    from the same weights, batch and GP α: losses within STEP_LOSS_RTOL/ATOL,
+    every parameter update within STEP_UPDATE_REL_L2 and STEP_UPDATE_COS."""
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cpu = _small_state("cpu", bn_fused=bn_fused)
+        cpu = _small_state("cpu", bn_fused=bn_fused, espnet=espnet)
         start = [{k: v.clone() for k, v in m.state_dict().items()}
                  for m in (cpu.teacher, cpu.student, cpu.discriminator)]
-        gpu = _small_state(device, start, bn_fused)
+        gpu = _small_state(device, start, bn_fused, espnet)
         rng = np.random.RandomState(5)
         images = rng.randn(2, 3, 256, 256).astype(np.float32)
         images[1] = 3.0 * images[1] + 1.0  # two images of different statistics
@@ -964,7 +1004,10 @@ def phase_train_gpu_vs_cpu(device: torch.device, bn_fused: bool = False) -> None
             gpu, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device),
             alpha=alpha.to(device))
         counts = read_counts()
-        check(counts["K4"] == 1, "the GPU step did not launch K4")
+        # the R18 heads agree in shape (K4 once); ESPNet-C's differ (K2 twice)
+        want = {"K2": 2, "K3": 2, "K4": 0} if espnet else {"K4": 1}
+        check(all(counts[k] == n for k, n in want.items()),
+              f"the GPU step launched {counts}, expected {want}")
         if bn_fused:
             n_teacher, n_student = _fused_abns(gpu.teacher), _fused_abns(gpu.student)
             check((counts["K6"], counts["K7"], counts["K8"]) ==
@@ -1001,9 +1044,13 @@ def phase_train_gpu_vs_cpu(device: torch.device, bn_fused: bool = False) -> None
                     worst = max(worst, (err / nt, f"{name}.{k}"))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return {"loss_rel_diff": loss_rel, "worst_update_rel_l2": worst[0],
+            "worst_update_tensor": worst[1]}
+
+
+def phase_train_gpu_vs_cpu(device: torch.device, bn_fused: bool = False) -> None:
     phase(12 if bn_fused else 9, "train_fused_gpu_vs_cpu" if bn_fused else "train_gpu_vs_cpu",
-          loss_rel_diff=loss_rel, worst_update_rel_l2=worst[0],
-          worst_update_tensor=worst[1], loss_rtol=STEP_LOSS_RTOL,
+          **_gpu_vs_cpu_step(device, bn_fused), loss_rtol=STEP_LOSS_RTOL,
           update_rel_l2_max=STEP_UPDATE_REL_L2, update_cos_min=STEP_UPDATE_COS,
           update_floor=UPDATE_FLOOR)
 
@@ -1672,10 +1719,12 @@ def _full_state(cfg, device: torch.device, bn_fused: bool) -> tuple:
     return state, gen
 
 
-def _device_chunks(cfg, n: int, device: torch.device) -> list:
-    """n chunks of LOOP_UNROLL synthetic batches on the card, as the CLI's
-    wire makes them: bf16 NCHW images, uint8 labels."""
-    ds = SyntheticSegDataset(n * LOOP_UNROLL * cfg.batch_size, TRAIN_CROP, NUM_CLASSES, seed=4)
+def _device_chunks(cfg, n: int, device: torch.device, seed: int = 4) -> list:
+    """n chunks of LOOP_UNROLL synthetic batches of `cfg`'s crop and classes
+    on the card, as the CLI's wire makes them: bf16 NCHW images, uint8
+    labels."""
+    ds = SyntheticSegDataset(n * LOOP_UNROLL * cfg.batch_size, tuple(cfg.input_size),
+                             cfg.classes_num, seed=seed)
     chunks = chunk_batches(cast_batches(batch_iterator(ds, cfg.batch_size, shuffle=False),
                                         torch.bfloat16, torch.uint8), LOOP_UNROLL)
     return [(to_nchw(c.images.to(device)), c.labels.to(device)) for c in chunks]
@@ -2202,6 +2251,515 @@ def phase_eval_modes(device: torch.device) -> dict:
     return parts
 
 
+# phase 18: the CamVid ESPNet-C distillation recipe (scripts/run_camvid_espnet.sh)
+# at full width: R101 teacher and ESPNet-C (p=2, q=8) student at 11 classes,
+# batch 8, 360×480 crops, bf16, Pi+Pa, ho false; the student's heads are
+# stride 8 (45×60) and stride 4 (90×120), so the DSN CE is K2/K3 twice a step
+CV_CLASSES = 11
+CV_CROP = (360, 480)
+CV_IMSIZE_ADV = 46
+CV_HEADS = ((TRAIN_BATCH, CV_CLASSES, 45, 60), (TRAIN_BATCH, CV_CLASSES, 90, 120))
+CV_FRAMES = (("train", 8), ("val", 3))
+CV_CLI_STEPS = 8  # two chunks of 4: the eager warm-up, then a capture and its replay
+# OHEM at the R18 recipe: k = 100000 // 64 = 1562 < the 1/8 grid's 8·64·64
+OHEM_MIN_KEPT = 100000
+OHEM_LOSS_RTOL = 1e-4  # CPU and card softmax/resize round differently; the kept set may differ by a pixel
+OHEM_THRESH_ATOL = 1e-6
+# VOC at its eval size: 505×505 frames (R18 logits 64×64), 21 classes
+VOC_CLASSES = 21
+VOC_FRAMES = (("val", 4), ("test", 2))
+VOC_SIZE = (375, 500)  # a typical VOC frame, padded to 505×505 by the loaders
+
+
+def _camvid_config(**overrides) -> TrainConfig:
+    kw = dict(classes_num=CV_CLASSES, input_size=CV_CROP, imsize_for_adv=CV_IMSIZE_ADV,
+              student_arch="espnet", pi=True, pa=True, ho=False, unroll_steps=LOOP_UNROLL)
+    kw.update(overrides)
+    return _train_config(**kw)
+
+
+def _camvid_state(cfg, device: torch.device) -> tuple:
+    """The recipe's models: the R101 teacher (11 classes) from seed 2 with
+    random running statistics, the ESPNet-C student and D drawn from a
+    generator seeded as `KDTrainer` seeds it; returns (state, generator)."""
+    dtype = torch.bfloat16
+    teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), CV_CLASSES, device=device,
+                        generator=torch.Generator().manual_seed(2), dtype=dtype)
+    randomize_bn_stats(teacher, 3)
+    teacher.requires_grad_(False)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    student = ESPNetC(CV_CLASSES, device=device, dtype=dtype, generator=gen)
+    disc = Discriminator(CV_CLASSES, preprocess_mode=cfg.preprocess_gan_mode,
+                         image_size=cfg.imsize_for_adv, conv_dim=cfg.adv_conv_dim, dtype=dtype,
+                         device=device, generator=gen)
+    state = KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+    return state, gen
+
+
+def _eager_vs_replay(state, gen, cfg, chunks) -> tuple:
+    """After the loop's eager warm-up chunk (chunks[0]), a copy of the state
+    takes the next chunk's steps eagerly through `train_step` while the loop
+    captures and replays it (phase 16's equivalence): losses within phase 9's
+    rtol/atol, every tensor within LOOP_TENSOR_REL in its change. Returns
+    (loop, reference state and generator, the eager steps' ms, their launch
+    counts over the first step and over all, the comparison)."""
+    unroll = chunks[0][0].shape[0]
+    loop = make_train_loop(cfg, unroll)
+    loop(state, *chunks[0], unroll, gen)
+    check(loop.eager_steps == unroll and loop.graph is None, "the warm-up chunk was not eager")
+    # the capture makes both optimizers' momentum buffers (D's stay zero
+    # when ho is false): make them first, so the three states hold one set
+    for module, opt in ((state.student, state.g_opt), (state.discriminator, state.d_opt)):
+        momentum_buffers(opt, [p for p in module.parameters() if p.requires_grad])
+    ref = copy.deepcopy(state)
+    ref_gen = torch.Generator().set_state(gen.get_state())
+    start = _loop_state(state)
+    params = {f"{n}.{k}" for n, m in (("student", state.student), ("disc", state.discriminator))
+              for k, _ in m.named_parameters()}
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    eager_m = [train_step(ref, chunks[1][0][0], chunks[1][1][0], ref_gen)]
+    torch.cuda.synchronize()
+    first = read_counts()
+    eager_m += [train_step(ref, chunks[1][0][i], chunks[1][1][i], ref_gen)
+                for i in range(1, unroll)]
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / unroll
+    counts = read_counts()
+    graph_m = loop(state, *chunks[1], unroll, gen)
+    torch.cuda.synchronize()
+    check(loop.captures == 1 and loop.replays == 1, "the chunk was not captured and replayed")
+    check(torch.equal(gen.get_state(), ref_gen.get_state()), "the generators differ after the chunk")
+    loss_rel = {}
+    for i, em in enumerate(eager_m):
+        for k, v in em.items():
+            a, b = float(graph_m[k][i]), float(v)
+            check(math.isfinite(a) and abs(a - b) <= STEP_LOSS_RTOL * abs(b) + STEP_LOSS_ATOL,
+                  f"eager vs graph step {i} {k}: {b} vs {a}")
+            loss_rel[k] = max(loss_rel.get(k, 0.0), abs(a - b) / max(abs(b), 1e-30))
+    tensors = _compare_loop_states(start, _loop_state(ref), _loop_state(state), params)
+    return loop, ref, ref_gen, eager_ms, first, counts, {"loss_max_rel_diff": loss_rel,
+                                                         **tensors}
+
+
+def _camvid_step(device: torch.device) -> dict:
+    """Part 1: the CamVid step at full width, eager and as a replay."""
+    cfg = _camvid_config()
+    state, gen = _camvid_state(cfg, device)
+    chunks = _device_chunks(cfg, 3, device, seed=7)
+    torch.cuda.reset_peak_memory_stats(device)
+    loop, ref, ref_gen, eager_ms, first, counts, equivalence = _eager_vs_replay(
+        state, gen, cfg, chunks)
+    check((first["K2"], first["K3"], first["K4"], first["K5"]) == (2, 2, 0, 0),
+          f"one CamVid step launched K2/K3/K4/K5 {first['K2']}/{first['K3']}/{first['K4']}/"
+          f"{first['K5']} times, expected 2/2/0/0")
+    check(counts["K2"] == counts["K3"] == 2 * LOOP_UNROLL,
+          f"{LOOP_UNROLL} eager CamVid steps launched K2/K3 {counts['K2']}/{counts['K3']} times")
+    check(loop._plan == [], f"a CamVid step drew uniforms: {loop._plan}")
+    replay_ms = [_timed_chunk(lambda: loop(state, *chunks[2], LOOP_UNROLL, gen)) / LOOP_UNROLL
+                 for _ in range(2)]
+    check(loop.replays == 3, "a timed chunk was not a replay")
+    peak = torch.cuda.max_memory_allocated(device)
+    # one eager step with the adversarial term on: D (image_size 46) on the
+    # student's 45×60 logits and the resized teacher's, the GP included
+    ho_cfg = _camvid_config(ho=True)
+    ho = make_train_step(ho_cfg)(ref, chunks[2][0][0], chunks[2][1][0], ref_gen)
+    torch.cuda.synchronize()
+    ho_losses = {k: float(v) for k, v in ho.items()}
+    check(all(math.isfinite(v) for v in ho_losses.values()), f"the ho step: {ho_losses}")
+    check(ho_losses["d_loss"] != 0.0 and "adv_g_loss" in ho_losses, f"the ho step: {ho_losses}")
+    return {"eager_ms_per_step": eager_ms, "replay_ms_per_step": replay_ms,
+            "eager_images_per_second": TRAIN_BATCH * 1e3 / eager_ms,
+            "replay_images_per_second": [TRAIN_BATCH * 1e3 / t for t in replay_ms],
+            "capture_ms": loop.capture_ms,
+            "max_memory_allocated_two_states": peak,
+            "launches_per_step": {k: first[k] for k in ("K2", "K3", "K4", "K5")},
+            "launches": counts, "equivalence": equivalence, "ho_step_losses": ho_losses}
+
+
+def _camvid_ce_kernels(device: torch.device) -> dict:
+    """Part 2: K2/K3 at the two CamVid head shapes against their plain
+    versions, bf16 logits and int32 labels (5 % ignored), as phase 7 holds
+    them at the R18 shape; per head and summed over the two heads of a step."""
+    g = torch.Generator(device=device).manual_seed(21)
+    labels = torch.randint(0, CV_CLASSES, (TRAIN_BATCH, *CV_CROP), generator=g, device=device,
+                           dtype=torch.int32)
+    labels[torch.rand(labels.shape, generator=g, device=device) < 0.05] = 255
+    heads, total = [], {"fwd": {}, "bwd": {}}
+    for shape in CV_HEADS:
+        x = (2.0 * torch.randn(shape, generator=g, device=device)).to(torch.bfloat16)
+        x.requires_grad_(True)
+        runs = []
+        for _ in range(2):
+            loss = upsampled_ce_loss(x, labels, CV_CROP)
+            runs.append((loss.detach(), torch.autograd.grad(loss, x)[0]))
+        ref = upsampled_ce_loss_plain(x, labels, CV_CROP)
+        ref_grad = torch.autograd.grad(ref, x)[0]
+        torch.cuda.synchronize()
+        (loss, grad), (loss2, grad2) = runs
+        name = f"{tuple(shape)}->{CV_CROP}"
+        check(torch.equal(loss, loss2) and torch.equal(grad, grad2), f"{name}: two runs differ")
+        loss_err = abs(loss.item() - ref.item())
+        check(loss_err <= CE_LOSS_RTOL * abs(ref.item()) + 1e-7,
+              f"K2 {name}: loss {loss.item()} vs plain {ref.item()}")
+        grad_err = (grad.float() - ref_grad.float()).abs().max().item()
+        grad_max = ref_grad.float().abs().max().item()
+        check(grad_err <= CE_GRAD_REL[torch.bfloat16] * grad_max + 1e-12,
+              f"K3 {name}: grad max |diff| {grad_err} vs max |grad| {grad_max}")
+        fwd_ms = cuda_median_ms(lambda: upsampled_ce_loss(x, labels, CV_CROP))
+        plain_fwd_ms = cuda_median_ms(lambda: upsampled_ce_loss_plain(x, labels, CV_CROP))
+        loss = upsampled_ce_loss(x, labels, CV_CROP)
+        ref = upsampled_ce_loss_plain(x, labels, CV_CROP)
+        bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(loss, x, retain_graph=True))
+        plain_bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(ref, x, retain_graph=True))
+        # phase 7's count: the separable resize of every class, the
+        # log-softmax per labelled pixel and class; the backward twice the
+        # resize and softmax − one-hot
+        n, c, h_in, w_in = shape
+        valid = int((labels != 255).sum())
+        resize = 3 * n * c * CV_CROP[0] * (w_in + CV_CROP[1])
+        fwd = {"max_abs_err": loss_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+               **card_bound(x.nbytes + labels.numel() * 4 + 4, resize + 3 * c * valid)}
+        bwd = {"max_abs_err": grad_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+               **card_bound(2 * x.nbytes + labels.numel() * 4, 2 * resize + 5 * c * valid)}
+        heads.append({"shape": list(shape), "out": list(CV_CROP), "loss": loss.item(),
+                      "K2": fwd, "K3": bwd, "grad_max": grad_max})
+        for key, rec in (("fwd", fwd), ("bwd", bwd)):
+            t = total[key]
+            for f in ("ms", "plain_ms", "bound_ms"):
+                t[f] = t.get(f, 0.0) + rec[f]
+            t["max_abs_err"] = max(t.get("max_abs_err", 0.0), rec["max_abs_err"])
+    record = {}
+    for k, key in (("K2", "fwd"), ("K3", "bwd")):
+        t = total[key]
+        record[k] = {"max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"],
+                     "bound_by": ("bytes" if all(h[k]["bound_by"] == "bytes" for h in heads)
+                                  else "operations"),
+                     "library_ms": None, "bound_share": t["bound_ms"] / t["ms"],
+                     "shapes": "per CamVid step: the two heads' calls summed",
+                     "per_head": [{"shape": h["shape"], **h[k]} for h in heads]}
+    return {"heads": heads, "record": record}
+
+
+def _ohem_part(device: torch.device) -> dict:
+    """Part 4: an R18 step at the reference recipe with `ohem` (min_kept
+    100000: k = 1562), eagerly and as a replay (TrainLoop of one step: its
+    warm-up step, then a capture), and `criterion_ohem_dsn` on the card
+    against the CPU on confident logits (a kept set below every pixel)."""
+    cfg = _train_config(ohem=True, ohem_min_kept=OHEM_MIN_KEPT, unroll_steps=1)
+    state, gen = _full_state(cfg, device, bn_fused=False)
+    images, labels = _device_chunks(cfg, 1, device)[0]
+    chunks = [(images[i:i + 1], labels[i:i + 1]) for i in range(2)]
+    loop, ref, _, eager_ms, first, _, equivalence = _eager_vs_replay(state, gen, cfg, chunks)
+    check(first["K4"] == 0 and first["K2"] == 0, f"the OHEM step launched the CE kernels {first}")
+    replay_ms = _timed_chunk(lambda: loop(state, *chunks[1], 1, gen))
+    # the criterion alone, card vs CPU, on the logits of a confident model:
+    # classes in blocks of 8×8 low-res pixels, the label's logit 10 above
+    # N(0, 1) noise, labels the align-corners nearest samples of the blocks
+    # (5 % ignored); then the k-th smallest probability sets the threshold
+    g = torch.Generator().manual_seed(22)
+    low = torch.randint(0, NUM_CLASSES, (TRAIN_BATCH, 9, 9), generator=g)
+    low = low.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :65, :65]
+    idx = torch.floor(torch.arange(TRAIN_CROP[0]) * (64 / (TRAIN_CROP[0] - 1)) + 0.5).long()
+    full = low[:, idx][:, :, idx].clone()
+    full[torch.rand(full.shape, generator=g) < 0.05] = 255
+    onehot = F.one_hot(low, NUM_CLASSES).permute(0, 3, 1, 2).float()
+    preds = (10.0 * onehot + torch.randn(onehot.shape, generator=g),
+             torch.randn(onehot.shape, generator=g))
+    out = {}
+    for dev in ("cpu", device):
+        p = tuple(t.to(dev) for t in preds)
+        lab = full.to(dev)
+        up = resize_bilinear_align_corners(p[0], TRAIN_CROP)
+        out[str(dev)] = (float(criterion_ohem_dsn(p, lab, 255, 0.7, OHEM_MIN_KEPT)),
+                         float(ohem_threshold(up, lab, 255, 0.7, OHEM_MIN_KEPT)))
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = out["cpu"], out[str(device)]
+    check(abs(l_gpu - l_cpu) <= OHEM_LOSS_RTOL * abs(l_cpu), f"OHEM loss card {l_gpu} vs CPU {l_cpu}")
+    check(abs(t_gpu - t_cpu) <= OHEM_THRESH_ATOL, f"OHEM threshold card {t_gpu} vs CPU {t_cpu}")
+    check(0.7 < t_gpu < 1.0, f"the OHEM threshold {t_gpu} did not come from the k-th probability")
+    return {"k": OHEM_MIN_KEPT // 64, "eager_ms_per_step": eager_ms, "replay_ms": replay_ms,
+            "equivalence": equivalence, "criterion": {"loss_card": l_gpu, "loss_cpu": l_cpu,
+                                                      "threshold_card": t_gpu,
+                                                      "threshold_cpu": t_cpu}}
+
+
+def _interval_peaks(state, run, device: torch.device) -> list:
+    """`run()` (one step on `state`) with the peak and the allocated bytes at
+    the end of each interval between the forwards of the teacher, the
+    student and every application of D, read by forward hooks (each one
+    synchronises, so the step is not timed here)."""
+    marks = []
+
+    def mark(end: str) -> None:
+        torch.cuda.synchronize()
+        marks.append({"end": end, "peak": torch.cuda.max_memory_allocated(device),
+                      "allocated": torch.cuda.memory_allocated(device)})
+        torch.cuda.reset_peak_memory_stats(device)
+
+    hooks = []
+    for name, module in (("teacher", state.teacher), ("student", state.student),
+                         ("D", state.discriminator)):
+        hooks.append(module.register_forward_pre_hook(lambda m, a, n=name: mark(f"before {n}")))
+        hooks.append(module.register_forward_hook(lambda m, a, o, n=name: mark(f"after {n}")))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        run()
+        mark("end of step")
+    finally:
+        for h in hooks:
+            h.remove()
+    return marks
+
+
+def _remat_part(device: torch.device) -> dict:
+    """Part 5: one R18 step at the reference recipe with and without
+    `remat`, from copies of one state and generator: losses within phase 9's
+    rtol/atol, every tensor (running statistics included) within
+    LOOP_TENSOR_REL in its change over the step, so statistics moved twice
+    would fail; ms and peak memory of each (the memory the recompute saves)."""
+    cfg = _train_config()
+    state, gen = _full_state(cfg, device, bn_fused=False)
+    (images, labels), = _device_chunks(cfg, 1, device)
+    train_step = make_train_step(cfg)
+    train_step(state, images[0], labels[0], gen)  # warm-up: cuDNN's choices, momentum buffers
+    torch.cuda.synchronize()
+    start = _loop_state(state)
+    params = {f"{n}.{k}" for n, m in (("student", state.student), ("disc", state.discriminator))
+              for k, _ in m.named_parameters()}
+    runs = {}
+    for remat in (False, True, False, True):  # warm, then timed, each
+        st = copy.deepcopy(state)
+        st.student.remat = remat
+        g = torch.Generator().set_state(gen.get_state())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        m = train_step(st, images[1], labels[1], g)
+        torch.cuda.synchronize()
+        runs[remat] = {"ms": 1e3 * (time.perf_counter() - t0),
+                       "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+                       "metrics": {k: float(v) for k, v in m.items()}, "state": _loop_state(st)}
+        del st
+    # where the memory goes, on copies, one step each: the peak of every
+    # interval between module forwards (teacher, student, each application
+    # of D), and what the student's forward holds for its backward
+    for flag in (False, True):
+        st = copy.deepcopy(state)
+        st.student.remat = flag
+        marks = _interval_peaks(st, lambda: train_step(st, images[1], labels[1],
+                                                       torch.Generator().set_state(
+                                                           gen.get_state())), device)
+        after = [m for m in marks if m["end"] == "after student"][0]
+        before = [m for m in marks if m["end"] == "before student"][0]
+        runs[flag]["student_forward_held_bytes"] = after["allocated"] - before["allocated"]
+        runs[flag]["interval_peaks"] = marks
+        del st
+    plain, remat = runs[False], runs[True]
+    for k, b in plain["metrics"].items():
+        a = remat["metrics"][k]
+        check(math.isfinite(a) and abs(a - b) <= STEP_LOSS_RTOL * abs(b) + STEP_LOSS_ATOL,
+              f"remat vs plain {k}: {a} vs {b}")
+    tensors = _compare_loop_states(start, plain["state"], remat["state"], params)
+    # moved once: the student's running statistics change by what the plain
+    # step's change (a second update in the recompute would add 90 % to it)
+    stats = [k for k in start if k.startswith("student.") and k.endswith("running_mean")]
+    change = {name: torch.cat([(run["state"][k] - start[k]).double().reshape(-1)
+                               for k in stats]).norm().item() for name, run in runs.items()}
+    ratio = change[True] / change[False]
+    check(abs(ratio - 1.0) <= LOOP_TENSOR_REL,
+          f"remat moved the running means by {ratio} of the plain step's change")
+    keys = ("ms", "max_memory_allocated", "student_forward_held_bytes", "interval_peaks")
+    return {"plain": {k: plain[k] for k in keys}, "remat": {k: remat[k] for k in keys},
+            "peak_saved": plain["max_memory_allocated"] - remat["max_memory_allocated"],
+            "held_saved": plain["student_forward_held_bytes"] - remat["student_forward_held_bytes"],
+            "running_mean_change_ratio": ratio, "equivalence": tensors,
+            "losses": remat["metrics"]}
+
+
+def _blocky(rng, high: int, size) -> np.ndarray:
+    small = rng.integers(0, high, (-(-size[0] // 15), -(-size[1] // 15)))
+    return small.repeat(15, 0).repeat(15, 1)[:size[0], :size[1]].astype(np.uint8)
+
+
+def write_fake_camvid(root: str, frames=CV_FRAMES, size=CV_CROP, seed: int = 0) -> None:
+    """The SegNet-style CamVid tree from a seed: `{split}/*.png` BGR frames
+    (phase 15's smooth field under noise) and `{split}annot/*.png` labels
+    0..11 in blocks, 11 the void class."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    for split, n in frames:
+        for sub in (split, split + "annot"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n):
+            field = rng.uniform(0, 255, (7, 9, 3)).astype(np.float32)
+            image = cv2.resize(field, (w, h), interpolation=cv2.INTER_CUBIC)
+            image += rng.normal(0.0, 12.0, image.shape).astype(np.float32)
+            name = f"{split}_{i:04d}.png"
+            check(cv2.imwrite(os.path.join(root, split, name),
+                              np.clip(image, 0, 255).astype(np.uint8)), "cv2.imwrite failed")
+            check(cv2.imwrite(os.path.join(root, split + "annot", name),
+                              _blocky(rng, CV_CLASSES + 1, size)), "cv2.imwrite failed")
+
+
+def write_fake_voc(root: str, frames=VOC_FRAMES, size=VOC_SIZE, seed: int = 0) -> None:
+    """A VOC tree from a seed: `ImageSets/Segmentation/{split}.txt`,
+    `JPEGImages/<id>.jpg` and `SegmentationClassAug/<id>.png` (class ids
+    0..20 in blocks, a 255 border; none for test)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    sets = os.path.join(root, "ImageSets", "Segmentation")
+    for d in (sets, os.path.join(root, "JPEGImages"), os.path.join(root, "SegmentationClassAug")):
+        os.makedirs(d, exist_ok=True)
+    for split, n in frames:
+        ids = [f"2008_{split}_{i:04d}" for i in range(n)]
+        with open(os.path.join(sets, f"{split}.txt"), "w") as f:
+            f.writelines(i + "\n" for i in ids)
+        for i in ids:
+            check(cv2.imwrite(os.path.join(root, "JPEGImages", f"{i}.jpg"),
+                              rng.integers(0, 256, (*size, 3), dtype=np.uint8)), "imwrite failed")
+            if split != "test":
+                label = _blocky(rng, VOC_CLASSES, size)
+                label[:3] = 255
+                check(cv2.imwrite(os.path.join(root, "SegmentationClassAug", f"{i}.png"), label),
+                      "imwrite failed")
+
+
+def _item7_clis(device: torch.device) -> dict:
+    """Part 6: `cli.train` on a fake CamVid tree with the recipe's flags and
+    --unroll-steps 4 (an eager chunk, a capture and its replay, the eval at
+    360×480 with K1 counted), `cli.eval` and `cli.test` on a fake VOC tree
+    with the R18 student at 21 classes (505×505), and the CamVid u8 eval wire
+    against the f32 one."""
+    trainer_log = logging.getLogger("structure_knowledge_distillation_tpu_torch.training.trainer")
+    records = _Records()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="skd_item7_") as work:
+        cv_root, voc_root = os.path.join(work, "camvid"), os.path.join(work, "voc")
+        write_fake_camvid(cv_root, seed=8)
+        write_fake_voc(voc_root, seed=9)
+        argv = ["--data-set", "camvid", "--data-dir", cv_root,
+                "--data-list", os.path.join(work, "list", "camvid", "train.lst"),
+                "--val-data-list", os.path.join(work, "list", "camvid", "val.lst"),
+                "--student-arch", "espnet", "--classes_num", str(CV_CLASSES),
+                "--input-size", "%d,%d" % CV_CROP, "--imsize-for-adv", str(CV_IMSIZE_ADV),
+                "--random-mirror", "--random-scale", "--batch-size", str(TRAIN_BATCH),
+                "--pi", "true", "--pa", "true", "--ho", "false",
+                "--num-steps", str(CV_CLI_STEPS), "--unroll-steps", str(LOOP_UNROLL),
+                "--log-every", "1", "--device", device.type,
+                "--log-path", os.path.join(work, "log"),
+                "--snapshot-dir", os.path.join(work, "snap"), "--S_ckpt_path", ""]
+        trainer_log.addHandler(records)
+        try:
+            _, ms, counts, peak = _sweep(lambda: train_cli.main(argv))
+        finally:
+            trainer_log.removeHandler(records)
+        rows = _scalars(os.path.join(work, "log"))
+        steps = [r for r in rows if "g_loss" in r]
+        check([r["step"] for r in steps] == list(range(1, CV_CLI_STEPS + 1)),
+              f"the CamVid CLI logged steps {[r['step'] for r in steps]}")
+        for r in steps:
+            check(all(math.isfinite(v) for v in r.values()), f"a loss is not finite: {r}")
+        evals = [r["step"] for r in rows if "val_mean_iu" in r]
+        check(evals == [CV_CLI_STEPS - 1], f"the CamVid CLI evaluated at steps {evals}")
+        summary = [r.args for r in records.records if str(r.msg).startswith("multi-step loop:")]
+        check(len(summary) == 1 and summary[0] == (LOOP_UNROLL, 1, 1, LOOP_UNROLL),
+              f"the CamVid CLI's loop: {summary}")
+        n_val = dict(CV_FRAMES)["val"]
+        check(counts["K1"] == n_val, f"the CamVid eval launched K1 {counts['K1']} times")
+        # Python counts: the eager chunk's steps and the captured ones, 2 a step
+        check(counts["K2"] == counts["K3"] == 2 * 2 * LOOP_UNROLL and counts["K4"] == 0,
+              f"the CamVid CLI launched {counts}")
+        out["cli_train_camvid"] = {"seconds": ms / 1e3, "max_memory_allocated": peak,
+                                   "launches": {k: v for k, v in counts.items() if v},
+                                   "val_mean_iu": [r["val_mean_iu"] for r in rows
+                                                   if "val_mean_iu" in r],
+                                   "images_per_second": {r["step"]: r["img_per_sec"]
+                                                         for r in steps},
+                                   "losses_last": {k: steps[-1][k] for k in
+                                                   ("g_loss", "mc_loss", "pi_loss", "pa_loss")}}
+
+        # the CamVid u8 eval wire against the f32 one, ESPNet-C in f32
+        val = CamVidDataset(cv_root, os.path.join(work, "list", "camvid", "val.lst"),
+                            crop_size=CV_CROP, scale=False, mirror=False)
+        frames = list(batch_iterator(val, 1, shuffle=False, drop_last=False))
+        model = ESPNetC(CV_CLASSES, device=device, generator=torch.Generator().manual_seed(6))
+        model.eval()
+        sweep = lambda mean: evaluate_main(model, frames, CV_CLASSES, out_size=CV_CROP,  # noqa
+                                           input_mean=mean, device=device)
+        (f32_miou, _, f32_conf), ms_f32, c_f32, _ = _sweep(lambda: sweep(None),
+                                                           warm=lambda: sweep(None))
+        (u8_miou, _, u8_conf), ms_u8, c_u8, _ = _sweep(lambda: sweep(CAMVID_MEAN))
+        check(np.array_equal(u8_conf, f32_conf), "the CamVid u8 wire's confusion differs")
+        check(c_f32["K1"] == c_u8["K1"] == n_val, f"K1 launched {c_f32['K1']}/{c_u8['K1']}")
+        out["camvid_u8_wire"] = {"miou": u8_miou, "ms_per_frame_f32": ms_f32 / n_val,
+                                 "ms_per_frame_u8": ms_u8 / n_val,
+                                 "pixels": int(u8_conf.sum())}
+
+        # VOC: the R18 student at 21 classes, seeded weights, at 505×505
+        n_voc = dict(VOC_FRAMES)["val"]
+        argv = ["--data-set", "voc", "--data-dir", voc_root,
+                "--data-list", os.path.join(work, "list", "voc", "val.txt"),
+                "--device", device.type]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            miou, ms, counts, peak = _sweep(lambda: eval_cli.main(argv))
+        check(0.0 <= miou <= 1.0 and f"meanIU: {miou:.6f}" in buf.getvalue(),
+              f"cli.eval --data-set voc: {buf.getvalue()[-200:]}")
+        check(counts["K1"] == n_voc, f"the VOC eval launched K1 {counts['K1']} times")
+        out["cli_eval_voc"] = {"miou": miou, "seconds": ms / 1e3, "frames": n_voc,
+                               "max_memory_allocated": peak,
+                               "launches": {k: v for k, v in counts.items() if v}}
+        out_dir = os.path.join(work, "voc_out")
+        argv = ["--data-set", "voc", "--data-dir", voc_root, "--classes_num", str(VOC_CLASSES),
+                "--data-list", os.path.join(work, "list", "voc", "test.txt"),
+                "--output-dir", out_dir, "--device", device.type]
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, ms, counts, peak = _sweep(lambda: test_cli.main(argv))
+        pngs = sorted(os.listdir(out_dir))
+        check(len(pngs) == dict(VOC_FRAMES)["test"], f"cli.test --data-set voc wrote {pngs}")
+        for name in pngs:
+            with Image.open(os.path.join(out_dir, name)) as im:
+                png = np.asarray(im)
+                check(im.mode == "P" and png.shape == (505, 505) and png.max() < VOC_CLASSES,
+                      f"{name}: {im.mode} {png.shape} max {png.max()}")
+        out["cli_test_voc"] = {"pngs": pngs, "seconds": ms / 1e3, "max_memory_allocated": peak,
+                               "launches": {k: v for k, v in counts.items() if v}}
+    return out
+
+
+def phase_camvid_espnet(device: torch.device, card: str) -> dict:
+    """Phase 18: the CamVid ESPNet-C path (K2/K3 on a main path), OHEM,
+    --remat and the VOC/CamVid CLIs; one line a part."""
+    parts = {"step": _camvid_step(device)}
+    torch.cuda.empty_cache()
+    ce = _camvid_ce_kernels(device)
+    parts["ce_kernels"] = {"heads": ce["heads"]}
+    # phase 9's step with the full ESPNet-C (7 classes) as the student at
+    # 256²: the teacher's 33×33 grid resized to its 32×32, K2/K3 twice
+    parts["gpu_vs_cpu"] = _gpu_vs_cpu_step(device, espnet=True)
+    torch.cuda.empty_cache()
+    parts["ohem"] = _ohem_part(device)
+    torch.cuda.empty_cache()
+    parts["remat"] = _remat_part(device)
+    torch.cuda.empty_cache()
+    parts["clis"] = _item7_clis(device)
+    for name, fields in parts.items():
+        phase(18, f"camvid_espnet/{name}", card=card, **fields)
+    return {**parts, "record": ce["record"]}
+
+
 def main() -> int:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -2222,6 +2780,8 @@ def main() -> int:
     phase_train_cityscapes(device, card, train["ms_per_step"])
     phase_train_loop(device, card)
     eval_modes = phase_eval_modes(device)
+    camvid = phase_camvid_espnet(device, card)
+    clis = camvid["clis"]
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
@@ -2239,13 +2799,20 @@ def main() -> int:
         **k1,
         "eval_modes_launches": {p: eval_modes[p]["launches"].get("K1", 0)
                                 for p in ("fast_f32", "fast_u8", "sharded")},
+        # phase 18: the CamVid eval at (1,11,45,60)->(360,480) in the train
+        # CLI and the VOC eval at (1,21,64,64)->(505,505)
+        "camvid_voc_launches": {"cli_train_camvid": clis["cli_train_camvid"]["launches"]["K1"],
+                                "cli_eval_voc": clis["cli_eval_voc"]["launches"]["K1"]},
     }]
     ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
     pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"
-    # K4/K5 carry the train step; K2/K3 run only when the DSN heads differ in
-    # shape, which the R18 student never does, so the train path counts 0 of
-    # them. Errors: |loss − plain| for a forward, max |grad − plain| for a
-    # backward, at the train shape in bf16; ms: device time of that kernel.
+    # K4/K5 carry the R18 train step (heads of one shape); K2/K3 the CamVid
+    # ESPNet-C step, whose heads differ (45×60 and 90×120): launches are
+    # phase 18's 4 eager CamVid steps (2 a step), and errors, ms, plain_ms
+    # and bound_ms those of one step's two calls summed at the CamVid shapes
+    # in bf16 (per head in `per_head`; phase 7's R18-shape numbers in
+    # `r18_shape`). Errors: |loss − plain| for a forward, max |grad − plain|
+    # for a backward; ms: device time of that kernel.
     fwd_design = ("ce_fwd_interval_kernel: a block per (image, low-res row interval, window of "
                   "512 columns) stages the two low-res rows, interpolates along H once per row "
                   "and along W once per pixel and class into registers, four classes at a "
@@ -2257,10 +2824,17 @@ def main() -> int:
                                     ("K3", "upsampled_ce_loss (backward)", 227, bwd_design),
                                     ("K4", "upsampled_ce_loss_dsn (forward)", 315, fwd_design),
                                     ("K5", "upsampled_ce_loss_dsn (backward)", 362, bwd_design)):
-        kernels.append({"name": name, "route": "cuda", "source": ce_source,
-                        "replaces": f"{pallas_ce}:{line}", "path": "train",
-                        "launches": train["launches"][key],
-                        "on_main_path": key in ("K4", "K5"), "design": design, **ce[key]})
+        entry = {"name": name, "route": "cuda", "source": ce_source,
+                 "replaces": f"{pallas_ce}:{line}", "on_main_path": True, "design": design}
+        if key in ("K2", "K3"):
+            entry.update(path="train (CamVid ESPNet-C)",
+                         launches=camvid["step"]["launches"][key],
+                         launches_per_step=camvid["step"]["launches_per_step"][key],
+                         r18_train_launches=train["launches"][key], **camvid["record"][key],
+                         r18_shape=ce[key])
+        else:
+            entry.update(path="train", launches=train["launches"][key], **ce[key])
+        kernels.append(entry)
     # K6–K8: launches of the fused train step's timed steps plus the fused
     # eval sweep's; errors and times at the shapes phase_bn_kernel names
     bn_source = "structure_knowledge_distillation_tpu_torch/csrc/fused_bn.cu"

@@ -6,15 +6,19 @@
 
 Counterpart of `structure_knowledge_distillation_tpu/cli/eval.py`, with the
 same flags plus `--device` (default `cuda`; a host without CUDA needs
-`--device cpu`). Ported: Cityscapes, the ResNet-18 PSPNet student and every
-single-device sweep: whole-image single-scale, multiscale+flip (`--scales
-0.75,1.0,1.25 --flip true`) and sliding tiles (`--whole false --tile-size
-512,512`). `--num-data-shards` > 1 is ROADMAP Queue A item 8 (DDP) and
+`--device cpu`). Ported: the Cityscapes, VOC (505×505, 21 classes) and
+CamVid (360×480, 11 classes) val sets (`--data-set`; a missing list is
+generated from the tree), the ResNet-18 PSPNet and ESPNet-C students
+(`--student-arch resnet18|espnet`) and every single-device sweep:
+whole-image single-scale, multiscale+flip (`--scales 0.75,1.0,1.25 --flip
+true`) and sliding tiles (`--whole false --tile-size 512,512`).
+`--num-data-shards` > 1 is ROADMAP Queue A item 8 (DDP) and
 `--num-spatial-shards` > 1 is not ported (XLA's halo exchange); both raise.
-The port reads `.pth`
-checkpoints only; a JAX `.msgpack` checkpoint crosses over as the state dict
-that the JAX package's `export_torch_respspnet` writes. Without
-`--resume-from` the student keeps seeded random weights (seed 0).
+The port reads `.pth` checkpoints only; a JAX `.msgpack` checkpoint crosses
+over as the state dict that the JAX package's `export_torch_respspnet`
+writes (R18), or that `training/checkpoint.py::espnet_state_dict_from_jax`
+makes (ESPNet-C, the port's own names). Without `--resume-from` the student
+keeps seeded random weights (seed 0).
 """
 
 from __future__ import annotations
@@ -26,15 +30,14 @@ import torch
 
 from structure_knowledge_distillation_tpu_torch.data import (
     DATASET_EVAL_DEFAULTS,
-    CityscapesDataset,
+    DATASETS,
     batch_iterator,
+    ensure_list,
 )
-from structure_knowledge_distillation_tpu_torch.models import student_model
+from structure_knowledge_distillation_tpu_torch.models import ESPNetC, student_model
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.evaluate import evaluate_main
 
-DATASET_ITEM = "VOC and CamVid eval are ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
-ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 SHARDED_ITEM = ("the val sweep sharded across devices is ROADMAP Queue A item 8 'DDP' "
                 "(the port runs on one card)")
 SPATIAL_ITEM = ("height-sharded eval (evaluate_spatial, XLA's halo exchange) is ROADMAP "
@@ -51,18 +54,34 @@ def str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
-def load_student(num_classes: int, device: torch.device, resume_from: str) -> torch.nn.Module:
-    """The R18 student in eval mode on `device`: seeded random weights (seed
-    0), or a reference-named `.pth` state dict from `resume_from`. A CUDA
-    device without CUDA and a JAX `.msgpack` raise."""
+def build_student(arch: str, num_classes: int, device: torch.device) -> torch.nn.Module:
+    """The R18 `ResPSPNet` or, for arch `espnet`, the ESPNet-C `ESPNetC`
+    (p=2, q=8), with seeded random weights (seed 0) on `device`."""
+    gen = torch.Generator().manual_seed(0)
+    if arch == "espnet":
+        return ESPNetC(num_classes, device=device, generator=gen)
+    return student_model(num_classes, device=device, generator=gen)
+
+
+def load_student(num_classes: int, device: torch.device, resume_from: str,
+                 arch: str = "resnet18") -> torch.nn.Module:
+    """The student in eval mode on `device`: seeded random weights (seed 0),
+    or a `.pth` state dict from `resume_from`: reference-named for the R18
+    student (merged by intersection, as the JAX importer does), the port's
+    own names for ESPNet-C (loaded strictly). A CUDA device without CUDA
+    and a JAX `.msgpack` raise."""
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device on this host; pass --device cpu")
     if resume_from.endswith(".msgpack"):
         raise ValueError("the port reads .pth checkpoints only; convert a JAX "
                          ".msgpack with export_torch_respspnet and torch.save")
-    model = student_model(num_classes, device=device, generator=torch.Generator().manual_seed(0))
+    model = build_student(arch, num_classes, device)
     if resume_from:
-        ckpt_io.load_reference_state_dict(model, ckpt_io.load_torch_state_dict(resume_from))
+        sd = ckpt_io.load_torch_state_dict(resume_from)
+        if arch == "espnet":
+            model.load_state_dict(sd, strict=True)
+        else:
+            ckpt_io.load_reference_state_dict(model, sd)
     return model.eval()
 
 
@@ -92,10 +111,6 @@ def main(argv=None):
                    help="torch device; a host without CUDA needs --device cpu")
     args = p.parse_args(argv)
 
-    if args.data_set not in ("cityscapes", "cityscape"):
-        raise NotImplementedError(DATASET_ITEM)
-    if args.student_arch != "resnet18":
-        raise NotImplementedError(ESPNET_ITEM)
     if args.num_data_shards > 1:
         raise NotImplementedError(SHARDED_ITEM)
     if args.num_spatial_shards > 1:
@@ -105,10 +120,11 @@ def main(argv=None):
     out_h, out_w = (map(int, args.eval_size.split(","))
                     if args.eval_size else default_size)
     num_classes = args.classes_num or default_classes
-    model = load_student(num_classes, device, args.resume_from)
+    model = load_student(num_classes, device, args.resume_from, args.student_arch)
 
-    ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(out_h, out_w),
-                           scale=False, mirror=False)
+    data_list = ensure_list(args.data_set, args.data_dir, args.data_list)
+    ds = DATASETS[args.data_set](args.data_dir, data_list, crop_size=(out_h, out_w),
+                                 scale=False, mirror=False)
     loader = batch_iterator(ds, 1, shuffle=False, drop_last=False)
     mean_iu, iu_array, _ = evaluate_main(
         model, loader, num_classes, out_size=(out_h, out_w), eval_type="val",

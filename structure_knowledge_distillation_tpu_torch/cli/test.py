@@ -10,9 +10,10 @@ reads no JAX `.msgpack`; without `--resume-from` it keeps seeded random
 weights), runs full-resolution inference over the test list (generated from
 the Cityscapes tree when the list file is missing) and writes one
 trainId→labelId-remapped palette PNG per frame into `--output-dir`
-(reference networks/evaluate.py:187-191). `--scales`/`--flip` run the
-multiscale+flip sweep, `--whole false` sliding 512×512 tiles. The VOC test
-sweep is ROADMAP Queue A item 7 and raises.
+(reference networks/evaluate.py:187-191). `--data-set voc` runs the VOC
+test sweep instead: the frames padded to 505×505 and one PNG of class ids
+(no remap) per test id. `--scales`/`--flip` run the multiscale+flip sweep,
+`--whole false` sliding 512×512 tiles.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from structure_knowledge_distillation_tpu_torch.cli.eval import load_student
 from structure_knowledge_distillation_tpu_torch.config import TestConfig
 from structure_knowledge_distillation_tpu_torch.data import (
     CityscapesTestDataset,
+    VOCTestDataset,
     batch_iterator,
     ensure_list,
 )
@@ -33,6 +35,7 @@ from structure_knowledge_distillation_tpu_torch.training.evaluate import evaluat
 log = logging.getLogger(__name__)
 
 OUT_SIZE = (1024, 2048)
+VOC_OUT_SIZE = (505, 505)
 
 
 def main(argv=None) -> None:
@@ -42,11 +45,14 @@ def main(argv=None) -> None:
     device = torch.device(cfg.device)
     model = load_student(cfg.classes_num, device, cfg.resume_from)
     data_list = ensure_list(cfg.data_set, cfg.data_dir, cfg.data_list)
-    ds = CityscapesTestDataset(cfg.data_dir, data_list, crop_size=OUT_SIZE)
+    voc = cfg.data_set == "voc"
+    out_size = VOC_OUT_SIZE if voc else OUT_SIZE
+    test_cls = VOCTestDataset if voc else CityscapesTestDataset
+    ds = test_cls(cfg.data_dir, data_list, crop_size=out_size)
     loader = batch_iterator(ds, 1, shuffle=False, drop_last=False)
-    evaluate_main(model, loader, cfg.classes_num, out_size=OUT_SIZE, eval_type="test",
+    evaluate_main(model, loader, cfg.classes_num, out_size=out_size, eval_type="test",
                   output_dir=cfg.output_dir, whole=cfg.whole, scales=cfg.scales, flip=cfg.flip,
-                  remap_train_ids=True, device=device)
+                  remap_train_ids=not voc, device=device)
     log.info("wrote submission PNGs to %s", cfg.output_dir)
 
 

@@ -7,10 +7,20 @@
 
 Counterpart of `structure_knowledge_distillation_tpu/cli/train.py`, with the
 same flags (see `config.py`) plus `--device` (default `cuda`; a host without
-CUDA needs `--device cpu`). Data sets: `cityscapes` (the train list at
-`--input-size` with the reference's augmentation, the val list at
-1024×2048; missing lists are generated from the tree) and `synthetic` (no
-files needed). VOC and CamVid are ROADMAP Queue A item 7 and raise.
+CUDA needs `--device cpu`). Data sets: `cityscapes`, `camvid` and `voc`
+(the train list at `--input-size` with the reference's augmentation, the
+val list at 1024×2048, 360×480 and 505×505; missing lists are generated
+from the tree) and `synthetic` (no files needed). The CamVid ESPNet-C
+recipe (scripts/run_camvid_espnet.sh):
+
+    python -m structure_knowledge_distillation_tpu_torch.cli.train \
+        --data-set camvid --data-dir ../camvid --student-arch espnet \
+        --classes_num 11 --input-size 360,480 --imsize-for-adv 46 \
+        --random-mirror --random-scale --batch-size 8 --pi true --pa true \
+        --ho false --T_ckpt_path ./ckpt/camvid_teacher.pth
+
+`--ohem true` trains on the OHEM task loss and `--remat true`
+rematerialises the R18 student's residual blocks.
 
 The teacher loads from a `.pth` (`--T_ckpt_path`), the student's ImageNet
 init from `--student-pretrain-model-imgnet`, the discriminator with
@@ -45,6 +55,7 @@ import torch
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import (
     DATASET_EVAL_DEFAULTS,
+    DATASETS,
     CityscapesDataset,
     SyntheticSegDataset,
     batch_iterator,
@@ -59,11 +70,11 @@ from structure_knowledge_distillation_tpu_torch.utils import log_init, save_args
 
 log = logging.getLogger(__name__)
 
-DATASET_ITEM = "training on {} is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
-
 
 def build_datasets(cfg: TrainConfig):
-    """(train, val) datasets of `cfg.data_set`."""
+    """(train, val) datasets of `cfg.data_set`: the train list at
+    `input_size` with the reference's augmentation, the val list at the
+    data set's eval size (`DATASET_EVAL_DEFAULTS`)."""
     if cfg.data_set == "synthetic":
         train = SyntheticSegDataset(length=cfg.num_steps * cfg.batch_size,
                                     crop_size=cfg.input_size, num_classes=cfg.classes_num,
@@ -71,22 +82,21 @@ def build_datasets(cfg: TrainConfig):
         val = SyntheticSegDataset(length=2, crop_size=cfg.input_size,
                                   num_classes=cfg.classes_num, seed=cfg.seed + 1)
         return train, val
-    if cfg.data_set in ("voc", "camvid"):
-        raise NotImplementedError(DATASET_ITEM.format(cfg.data_set))
-    if cfg.data_set not in ("cityscapes", "cityscape"):
+    if cfg.data_set not in DATASETS:
         raise ValueError(f"unknown data_set {cfg.data_set!r}")
-    # reference-style default list paths (./dataset/list/cityscapes/train.lst)
+    # reference-style default list paths (./dataset/list/<data set>/train.lst)
     # resolve by generating the lists from the dataset tree on first use
     cfg.data_list = ensure_list(cfg.data_set, cfg.data_dir, cfg.data_list)
     cfg.val_data_list = ensure_list(cfg.data_set, cfg.data_dir, cfg.val_data_list)
-    cache_dir = cfg.decode_cache_dir or None
-    train = CityscapesDataset(
-        cfg.data_dir, cfg.data_list, max_iters=cfg.num_steps * cfg.batch_size,
-        crop_size=cfg.input_size, scale=cfg.random_scale, mirror=cfg.random_mirror,
-        ignore_label=cfg.ignore_label, seed=cfg.seed, cache_dir=cache_dir)
-    val = CityscapesDataset(
-        cfg.data_dir, cfg.val_data_list, crop_size=DATASET_EVAL_DEFAULTS[cfg.data_set][0],
-        scale=False, mirror=False, ignore_label=cfg.ignore_label, cache_dir=cache_dir)
+    cls = DATASETS[cfg.data_set]
+    # the CamVid mean comes with the class's default; cfg.input_mean_bgr
+    # already holds it for the u8 wire (TrainConfig.__post_init__)
+    extra = ({"cache_dir": cfg.decode_cache_dir or None} if cls is CityscapesDataset else {})
+    train = cls(cfg.data_dir, cfg.data_list, max_iters=cfg.num_steps * cfg.batch_size,
+                crop_size=cfg.input_size, scale=cfg.random_scale, mirror=cfg.random_mirror,
+                ignore_label=cfg.ignore_label, seed=cfg.seed, **extra)
+    val = cls(cfg.data_dir, cfg.val_data_list, crop_size=DATASET_EVAL_DEFAULTS[cfg.data_set][0],
+              scale=False, mirror=False, ignore_label=cfg.ignore_label, **extra)
     return train, val
 
 

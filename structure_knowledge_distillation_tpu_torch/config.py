@@ -8,8 +8,12 @@ default `cuda`; a host without CUDA needs `--device cpu`).
 
 Resume (`S_resume`, `D_resume`, `last_step`), the loader workers
 (`num_workers`), the decode cache (`decode_cache_dir`), the multi-step loop
-(`unroll_steps`, one CUDA-graph replay per chunk on the card) and the step
-profiler (`profile_dir`, `profile_steps`) are ported. Options
+(`unroll_steps`, one CUDA-graph replay per chunk on the card), the step
+profiler (`profile_dir`, `profile_steps`), the OHEM task loss (`ohem`,
+`ohem_thresh`, `ohem_min_kept`), the ESPNet-C student (`student_arch`
+espnet), `remat` and the VOC and CamVid data sets are ported; the CamVid
+BGR mean replaces the default `input_mean_bgr` when `data_set` is camvid,
+as in the JAX package. Options
 of the JAX package that the port has not ported raise `NotImplementedError`
 naming their ROADMAP item when set to anything but their default; the
 reference's GPU-era flags (`--gpu`, `--parallel`, `--is-training`,
@@ -34,7 +38,6 @@ from typing import Optional, Tuple
 
 __all__ = ["TestConfig", "TrainConfig", "str2bool"]
 
-_ITEM7 = "ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 _ITEM8 = "ROADMAP Queue A item 8 'DDP'"
 _NOT_PORTED = "ROADMAP 'Not ported' (a TPU measure)"
 
@@ -152,10 +155,10 @@ class TrainConfig:
 
     def _check_ported(self) -> None:
         """Raise for every option the port has not ported yet."""
+        if self.student_arch not in ("resnet18", "espnet"):
+            raise ValueError(f"student_arch should be resnet18 or espnet, "
+                             f"got {self.student_arch!r}")
         checks = (
-            (self.ohem, f"the OHEM task loss is {_ITEM7}"),
-            (self.student_arch != "resnet18", f"the ESPNet student is {_ITEM7}"),
-            (self.remat, f"--remat (torch.utils.checkpoint) is {_ITEM7}"),
             (max(self.num_data_shards, self.num_model_shards, self.num_slices,
                  self.num_spatial_shards) > 1, f"multi-device meshes are {_ITEM8}"),
             (self.flat_sgd, f"flat_sgd is {_NOT_PORTED}"),
@@ -301,10 +304,6 @@ class TestConfig:
     scales: Tuple[float, ...] = (1.0,)  # multi-scale averaging
     data_set: str = "cityscapes"  # cityscapes | voc
     device: str = "cuda"
-
-    def __post_init__(self):
-        if self.data_set == "voc":
-            raise NotImplementedError(f"the VOC test sweep is {_ITEM7}")
 
     @classmethod
     def from_args(cls, argv: Optional[list] = None) -> "TestConfig":

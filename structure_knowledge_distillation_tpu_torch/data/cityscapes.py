@@ -116,6 +116,37 @@ def _resize(img: np.ndarray, fx: float, nearest: bool) -> np.ndarray:
     return np.asarray(Image.fromarray(img).resize(new, mode))
 
 
+def augment(rng: np.random.Generator, image: np.ndarray, label: np.ndarray,
+            crop: Tuple[int, int], mean: np.ndarray, scale_steps: Optional[int],
+            scale_base: float, mirror: bool, ignore_label: int) -> tuple:
+    """The JAX datasets' numpy train augmentation (Cityscapes, CamVid, VOC):
+    a scale f = scale_base + integers(0, scale_steps)/10 (no draw when
+    `scale_steps` is None; cv2 INTER_LINEAR image, INTER_NEAREST label),
+    mean subtraction, zero/ignore padding up to `crop`, a random crop and,
+    with `mirror`, a random flip; the draws in that order. Returns (image
+    f32, label in its own dtype) cut to `crop`."""
+    crop_h, crop_w = crop
+    if scale_steps is not None:
+        f = scale_base + int(rng.integers(0, scale_steps)) / 10.0
+        image = _resize(image, f, nearest=False)
+        # cv2 has no int32 nearest resize: the label resizes as uint8
+        label = _resize(label.astype(np.uint8), f, nearest=True).astype(label.dtype)
+    image = image.astype(np.float32) - mean
+    pad_h = max(crop_h - label.shape[0], 0)
+    pad_w = max(crop_w - label.shape[1], 0)
+    if pad_h > 0 or pad_w > 0:
+        image = np.pad(image, ((0, pad_h), (0, pad_w), (0, 0)), constant_values=0.0)
+        label = np.pad(label, ((0, pad_h), (0, pad_w)), constant_values=ignore_label)
+    h_off = int(rng.integers(0, label.shape[0] - crop_h + 1))
+    w_off = int(rng.integers(0, label.shape[1] - crop_w + 1))
+    image = image[h_off:h_off + crop_h, w_off:w_off + crop_w]
+    label = label[h_off:h_off + crop_h, w_off:w_off + crop_w]
+    if mirror and bool(rng.integers(0, 2)):
+        image = image[:, ::-1]
+        label = label[:, ::-1]
+    return image, label
+
+
 @dataclass
 class _Record:
     img: str
@@ -196,31 +227,9 @@ class CityscapesDataset:
             return self._getitem_native(rec, image)
         label = id2trainid(self._read(rec.label, gray=True))
         size = np.array(image.shape)
-
-        if self.scale:
-            # f ∈ {0.7, 0.8, ..., 2.1} (reference datasets.py:157-161)
-            f = 0.7 + int(self.rng.integers(0, 15)) / 10.0
-            image = _resize(image, f, nearest=False)
-            label = _resize(label, f, nearest=True)
-
-        image = image.astype(np.float32) - self.mean
-        img_h, img_w = label.shape
-        pad_h = max(self.crop_h - img_h, 0)
-        pad_w = max(self.crop_w - img_w, 0)
-        if pad_h > 0 or pad_w > 0:
-            image = np.pad(image, ((0, pad_h), (0, pad_w), (0, 0)), constant_values=0.0)
-            label = np.pad(label, ((0, pad_h), (0, pad_w)),
-                           constant_values=self.ignore_label)
-        img_h, img_w = label.shape
-        h_off = int(self.rng.integers(0, img_h - self.crop_h + 1))
-        w_off = int(self.rng.integers(0, img_w - self.crop_w + 1))
-        image = image[h_off:h_off + self.crop_h, w_off:w_off + self.crop_w]
-        label = label[h_off:h_off + self.crop_h, w_off:w_off + self.crop_w]
-
-        if self.mirror and bool(self.rng.integers(0, 2)):
-            image = image[:, ::-1]
-            label = label[:, ::-1]
-
+        # f ∈ {0.7, 0.8, ..., 2.1} (reference datasets.py:157-161)
+        image, label = augment(self.rng, image, label, (self.crop_h, self.crop_w), self.mean,
+                               15 if self.scale else None, 0.7, self.mirror, self.ignore_label)
         return (
             np.ascontiguousarray(image, np.float32),
             np.ascontiguousarray(label, np.int32),

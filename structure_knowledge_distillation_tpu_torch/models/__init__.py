@@ -1,3 +1,4 @@
+from structure_knowledge_distillation_tpu_torch.models.espnet import ESPNetC
 from structure_knowledge_distillation_tpu_torch.models.resnet_pspnet import (
     BASIC,
     BOTTLENECK,
@@ -16,6 +17,7 @@ __all__ = [
     "BasicBlock",
     "Bottleneck",
     "Discriminator",
+    "ESPNetC",
     "PSPModule",
     "ResPSPNet",
     "SelfAttention",

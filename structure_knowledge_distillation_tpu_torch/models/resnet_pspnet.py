@@ -26,14 +26,16 @@ PSP upsample interpolates in f32. Parameters and running statistics stay f32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from structure_knowledge_distillation_tpu_torch.ops.batch_norm import ABN
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import ABN, running_stats_frozen
 from structure_knowledge_distillation_tpu_torch.ops.pooling import max_pool_2d
 from structure_knowledge_distillation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
@@ -53,6 +55,12 @@ Draws = Callable[[tuple], torch.Tensor]  # a uniform source: shape -> U[0, 1) f3
 
 # PSP/DSN Dropout2d rate (reference pspnet_combine.py:100)
 DROP_RATE = 0.1
+
+
+def _remat_contexts():
+    """`checkpoint`'s context_fn: nothing around the first forward, the
+    running statistics frozen around the recompute."""
+    return contextlib.nullcontext(), running_stats_frozen()
 
 
 class Conv2d(nn.Conv2d):
@@ -205,18 +213,25 @@ class ResPSPNet(nn.Module):
     convolutions' compute dtype (None: float32) and `drop_rate` the rate of
     the PSP and DSN channel dropouts in train mode. `bn_fused` makes every
     ABN the fused one (`ABN(fused=True)`, kernels K6–K8), as the JAX model's
-    `bn_fused`; the state-dict keys do not change.
+    `bn_fused`. `remat` runs each residual block under a non-reentrant
+    `torch.utils.checkpoint` in train mode with gradients on (the JAX
+    model's `nn.remat` of its block class): the backward recomputes the
+    block's forward instead of keeping its activations, and the recompute
+    leaves the running statistics alone (`running_stats_frozen`), so they
+    move once per step, as JAX's functional batch_stats do. Neither option
+    changes the state-dict keys.
     """
 
     def __init__(self, block: str = BOTTLENECK, layers: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 19, width_mult: float = 1.0, device: Device = None,
                  generator: Optional[torch.Generator] = None, dtype: DType = None,
-                 drop_rate: float = DROP_RATE, bn_fused: bool = False):
+                 drop_rate: float = DROP_RATE, bn_fused: bool = False, remat: bool = False):
         super().__init__()
         if block not in (BASIC, BOTTLENECK):
             raise ValueError(f"unknown block {block!r}")
         self.block = block
         self.dtype = dtype
+        self.remat = remat
         block_cls = Bottleneck if block == BOTTLENECK else BasicBlock
         expansion = block_cls.expansion
         wm = lambda c: max(1, int(round(c * width_mult)))  # noqa: E731
@@ -264,6 +279,15 @@ class ResPSPNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
 
+    def _stage(self, stage: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return stage(x)
+        for block in stage:
+            # the blocks draw no random numbers: no RNG state to keep
+            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                           context_fn=_remat_contexts)
+        return x
+
     def forward(self, x: torch.Tensor, draws: Optional[Draws] = None):
         """The 7-tuple; `draws` is the train-mode dropout's uniform source
         (see `Dropout2d`)."""
@@ -273,10 +297,10 @@ class ResPSPNet(nn.Module):
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
         x = max_pool_2d(x, (3, 3), (2, 2), (1, 1), ceil_mode=True)
-        x1 = self.layer1(x)
-        x2 = self.layer2(x1)
-        x3 = self.layer3(x2)
-        x4 = self.layer4(x3)
+        x1 = self._stage(self.layer1, x)
+        x2 = self._stage(self.layer2, x1)
+        x3 = self._stage(self.layer3, x2)
+        x4 = self._stage(self.layer4, x3)
         conv1, bn, dropout, conv2 = self.dsn
         x_dsn = conv2(dropout(bn(conv1(x3)), draws))
         feat_after_psp = self.pspmodule(x4, draws)

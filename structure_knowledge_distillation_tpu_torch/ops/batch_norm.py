@@ -23,13 +23,33 @@ discriminator's) stays unfused: the WGAN-GP differentiates it twice.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["ABN", "BatchNorm2d", "abn_normalize", "abn_train"]
+__all__ = ["ABN", "BatchNorm2d", "abn_normalize", "abn_train", "running_stats_frozen"]
 
 ACTIVATIONS = ("none", "leaky_relu", "elu")
+
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside, train-mode ABNs normalise as usual but leave their running
+    statistics alone: the recompute of a checkpointed block (`ResPSPNet(...,
+    remat=True)`) runs its forward a second time in the backward, which must
+    not move them again. Per thread: the backward of CUDA tensors runs on
+    autograd's device thread, and so does the recompute."""
+    prev = getattr(_FROZEN, "on", False)
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = prev
 
 
 def _apply_activation(x: torch.Tensor, activation: str, slope: float) -> torch.Tensor:
@@ -187,6 +207,8 @@ class ABN(nn.Module):
         train_fn = fused_bn.abn_fused_train if self.fused else abn_train
         z, mean, var = train_fn(x, self.weight, self.bias, self.eps, self.activation,
                                 self.slope, self.abs_gamma)
+        if getattr(_FROZEN, "on", False):
+            return z
         n = x.numel() // x.shape[1]
         bessel = n / max(n - 1, 1)
         m = self.momentum

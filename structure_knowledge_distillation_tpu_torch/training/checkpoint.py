@@ -6,6 +6,8 @@ in torch formats. The port's `ResPSPNet` already uses the reference's
 state-dict names, so:
   * `state_dict_from_jax` turns the JAX package's variable tree into that
     state dict (what its `export_torch_respspnet` returns, without flax);
+  * `espnet_state_dict_from_jax` does the same for the ESPNet-C student,
+    whose port keeps the flax module names (no reference names exist);
   * `discriminator_state_dict_from_jax` does the same for the SAGAN
     discriminator's `{"params", "batch_stats", "spectral"}` tree (what its
     `export_torch_discriminator` returns);
@@ -38,7 +40,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "discriminator_state_dict_from_jax",
+__all__ = ["state_dict_from_jax", "espnet_state_dict_from_jax",
+           "discriminator_state_dict_from_jax",
            "load_torch_state_dict", "load_torch_checkpoint", "load_reference_state_dict",
            "load_meta", "save_torch", "save_student_snapshot", "save_auto_resume",
            "latest_auto_resume"]
@@ -94,6 +97,28 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
             if path[-1] == "kernel" and v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
             out[f"{torch_mod}.{_LEAF[path[-1]]}"] = v
+    return out
+
+
+_ESPNET_LEAF = {"kernel": "weight", "bias": "bias", "weight": "weight", "alpha": "alpha",
+                "mean": "running_mean", "var": "running_var"}
+
+
+def espnet_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's ESPNetC `{"params", "batch_stats"}` tree as the
+    port's `ESPNetC` state dict of numpy arrays: the flax module path joined
+    by dots (`level2_down/spp_0/kernel` → `level2_down.spp_0.weight`), HWIO
+    kernels as OIHW, each ABN's `weight`/`bias`/`mean`/`var` as `weight`,
+    `bias`, `running_mean`, `running_var`, each PReLU's `alpha`, the
+    classifiers' `kernel` and `bias`. `ESPNetC.load_state_dict(strict=True)`
+    takes the result."""
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})).items():
+            v = np.asarray(value)
+            if path[-1] == "kernel":
+                v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
+            out[".".join(path[:-1] + (_ESPNET_LEAF[path[-1]],))] = v
     return out
 
 

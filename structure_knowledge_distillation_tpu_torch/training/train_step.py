@@ -6,10 +6,17 @@ Counterpart of `structure_knowledge_distillation_tpu/training/train_step.py`
 the same order and with the same detach points:
 
   1. the teacher forward in eval mode under `no_grad`;
-  2. the student train forward; the G loss is the DSN cross-entropy (the
-     upsampled-CE kernels K4/K5 on the card) + λ_pi·Pi + λ_pa·Pa +
+  2. the student train forward (the R18 `ResPSPNet` or the ESPNet-C
+     `ESPNetC`); the G loss is the task loss + λ_pi·Pi + λ_pa·Pa +
      λ_d·AdvG, where AdvG applies D in train mode to the student's logits
-     with gradient;
+     with gradient. The task loss is chosen as in the JAX step: OHEM
+     (`criterion_ohem_dsn`) with `cfg.ohem`, else the fused DSN
+     cross-entropy (the upsampled-CE kernels on the card: K4/K5 when the two
+     heads agree in shape, as the R18 student's do; K2/K3 once per head when
+     they differ, as ESPNet-C's stride-8 and stride-4 heads do), else the
+     materialised one. A student whose stride-8 grid differs from the
+     teacher's (ESPNet-C floors where the PSPNet stem ceils) gets the
+     teacher's logits and feature resized to its grid first;
   3. the G gradients are taken with `torch.autograd.grad` w.r.t. the student
      parameters only: D's parameters get no gradient from the G loss, which
      the JAX step also throws away; then the G SGD update;
@@ -65,6 +72,7 @@ from structure_knowledge_distillation_tpu_torch.losses import (
     adv_loss_for_g,
     criterion_dsn,
     criterion_dsn_fused,
+    criterion_ohem_dsn,
     gp_alpha,
     gradient_penalty,
     pairwise_affinity_loss,
@@ -82,9 +90,6 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
 __all__ = ["make_train_step", "make_train_loop", "TrainLoop"]
 
 log = logging.getLogger(__name__)
-
-OHEM_ITEM = "the OHEM task loss is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
-ESPNET_ITEM = "the ESPNet student is ROADMAP Queue A item 7 'VOC/CamVid/ESPNet'"
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -155,10 +160,7 @@ def _make_body(cfg) -> Callable:
     n train steps on images_k[i], labels_k[i] with lrs lr_g[i], lr_d[i]
     (device tensors) and uniforms from `draws`; returns the metrics stacked
     to (n,). Spectral u/v go back into D's buffers at the end."""
-    if getattr(cfg, "ohem", False):
-        raise NotImplementedError(OHEM_ITEM)
-    if getattr(cfg, "student_arch", "resnet18") != "resnet18":
-        raise NotImplementedError(ESPNET_ITEM)
+    ohem = bool(getattr(cfg, "ohem", False))
     fused = _use_fused_ce(cfg)
 
     def g_loss_fn(student, disc, images, labels, logits_t, feat_t, draws):
@@ -169,7 +171,10 @@ def _make_body(cfg) -> Callable:
         if logits_t.shape[2:] != preds_s[0].shape[2:]:
             logits_t = resize_bilinear_align_corners(logits_t, tuple(preds_s[0].shape[2:]))
             feat_t = resize_bilinear_align_corners(feat_t, tuple(preds_s[2].shape[2:]))
-        if fused:
+        if ohem:
+            mc = criterion_ohem_dsn(preds_s, labels, cfg.ignore_label, cfg.ohem_thresh,
+                                    cfg.ohem_min_kept)
+        elif fused:
             mc = criterion_dsn_fused(preds_s, labels, cfg.ignore_label)
         else:
             mc = criterion_dsn(preds_s, labels, cfg.ignore_label)

@@ -54,7 +54,7 @@ import torch
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data.prefetch import Chunk, chunk_batches, to_nchw
-from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ResPSPNet
+from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ESPNetC, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt
 from structure_knowledge_distillation_tpu_torch.training.checkpoint import (
@@ -95,6 +95,9 @@ def _as_tensors(state_dict: Mapping) -> dict:
 class KDTrainer:
     """Teacher, student and discriminator on `cfg.device`, with their optimizers.
 
+    The student is the R18 `ResPSPNet` (with `cfg.remat`, its residual
+    blocks rematerialised) or, with `cfg.student_arch == "espnet"`, the
+    ESPNet-C `ESPNetC` (p=2, q=8), whose state-dict keys are the port's own.
     `teacher_state`, `student_state` and `d_state` are state dicts under the
     reference's torch names (a released `.pth`, or the JAX package's
     `export_torch_*`). A missing teacher is all zeros, with the JAX trainer's
@@ -126,8 +129,15 @@ class KDTrainer:
         self.teacher.requires_grad_(False)
 
         self.generator = torch.Generator().manual_seed(cfg.seed)
-        self.student = ResPSPNet(BASIC, (2, 2, 2, 2), cfg.classes_num, device=device,
-                                 dtype=dtype, generator=self.generator)
+        if cfg.student_arch == "espnet":
+            if cfg.remat:
+                log.warning("--remat only applies to the ResPSPNet student; "
+                            "ESPNet-C is shallow enough not to need it")
+            self.student = ESPNetC(cfg.classes_num, device=device, dtype=dtype,
+                                   generator=self.generator)
+        else:
+            self.student = ResPSPNet(BASIC, (2, 2, 2, 2), cfg.classes_num, device=device,
+                                     dtype=dtype, generator=self.generator, remat=cfg.remat)
         if student_state is not None:
             load_reference_state_dict(self.student, student_state)
         self.discriminator = Discriminator(

@@ -46,6 +46,13 @@ relative L2 per tensor (the same kernels on the same inputs); and a step
 that syncs with the host (`.item()`) makes the capture raise, with no
 eager fallback. That test comes last: a failed capture can leave the
 process's CUDA state unfit for later tests.
+
+The ESPNet-C, OHEM and remat paths on the card: a small ESPNet-C chunk
+(two heads of different shapes: K2/K3 twice a step, no uniform drawn) and
+an OHEM chunk (the threshold search without a host sync) each capture and
+replay to the eager steps within the same 1e-5; a fused, rematerialised R18
+student launches K6 again in each block's recompute and equals the plain
+student.
 """
 
 import copy
@@ -679,6 +686,119 @@ def test_train_loop_u8_wire_equals_host_dequantized(exact_cuda):
         a, b = getattr(state, attr).state_dict(), getattr(ref, attr).state_dict()
         for k in b:
             assert torch.equal(a[k], b[k]), (attr, k)
+
+
+def _item7_state(device, cfg, student) -> KDTrainState:
+    g = torch.Generator().manual_seed(11)
+    teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), cfg.classes_num, width_mult=0.25,
+                        generator=g)
+    disc = Discriminator(cfg.classes_num, 1, 33, 16, generator=g)
+    teacher.to(device).requires_grad_(False)
+    student.to(device)
+    disc.to(device)
+    return KDTrainState(
+        teacher=teacher, student=student, discriminator=disc,
+        g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+        d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+        g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+        d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+
+
+def _replay_equals_eager(device, cfg, state, classes):
+    """An eager warm-up chunk, then from copies of the state the next chunk
+    eagerly and as a capture + replay; returns the loop."""
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.RandomState(8)
+    chunks = []
+    for _ in range(2):
+        images = rng.randn(LOOP_K, 2, 3, 256, 256).astype(np.float32)
+        images[:, 1] = 3.0 * images[:, 1] + 1.0
+        labels = rng.randint(0, classes, (LOOP_K, 2, 256, 256)).astype(np.uint8)
+        chunks.append((torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)))
+    loop = make_train_loop(cfg, LOOP_K)
+    loop(state, *chunks[0], LOOP_K, gen)
+    ref, ref_gen = copy.deepcopy(state), torch.Generator().set_state(gen.get_state())
+    step = make_train_step(cfg)
+    want = [step(ref, chunks[1][0][i], chunks[1][1][i], ref_gen) for i in range(LOOP_K)]
+    got = loop(state, *chunks[1], LOOP_K, gen)
+    torch.cuda.synchronize()
+    assert (loop.captures, loop.replays) == (1, 1)
+    for i, m in enumerate(want):
+        for k, v in m.items():
+            assert torch.isfinite(v), k
+            torch.testing.assert_close(got[k][i], v, rtol=1e-5, atol=1e-6)
+    for attr in ("student", "discriminator"):
+        a, b = getattr(state, attr).state_dict(), getattr(ref, attr).state_dict()
+        for k in b:
+            err = (a[k].double() - b[k].double()).norm().item()
+            assert err <= 1e-5 * max(b[k].double().norm().item(), 1e-12), (attr, k, err)
+    return loop
+
+
+def test_train_loop_espnet_replay_equals_eager(exact_cuda):
+    """The CamVid recipe's step shape at a small size: an ESPNet-C student
+    (p=1, q=2, 11 classes) under the small teacher (33×33 logits resized to
+    the student's 32×32), ho false, so a step draws no uniform (an empty
+    draw plan); its two heads differ, so each step launches K2 and K3 twice
+    and K4/K5 never. The replay equals the eager steps."""
+    from structure_knowledge_distillation_tpu_torch.models import ESPNetC
+
+    cfg = TrainConfig(classes_num=11, batch_size=2, input_size=(256, 256), imsize_for_adv=33,
+                      adv_conv_dim=16, num_steps=40, compute_dtype="float32", device="cuda",
+                      student_arch="espnet", ho=False)
+    state = _item7_state(exact_cuda, cfg, ESPNetC(11, p=1, q=2,
+                                                  generator=torch.Generator().manual_seed(5)))
+    for fn, attr in ((upsampled_ce_loss, "launches"), (upsampled_ce_loss, "bwd_launches"),
+                     (upsampled_ce_loss_dsn, "launches"), (upsampled_ce_loss_dsn, "bwd_launches")):
+        setattr(fn, attr, 0)
+    loop = _replay_equals_eager(exact_cuda, cfg, state, 11)
+    counts = (upsampled_ce_loss.launches, upsampled_ce_loss.bwd_launches,
+              upsampled_ce_loss_dsn.launches, upsampled_ce_loss_dsn.bwd_launches)
+    # the warm-up chunk, the reference chunk and the captured one (counted
+    # once, as its kernels are recorded): 2 launches a step each
+    steps_run = 3 * LOOP_K
+    assert counts == (2 * steps_run, 2 * steps_run, 0, 0), counts
+    assert loop._plan == []
+
+
+def test_train_loop_ohem_step_captures(exact_cuda):
+    """`ohem` true: the threshold search (softmax, 1/8 zoom, top-k, a device
+    `where`) has no host sync, so the chunk captures; the replay equals the
+    eager steps. min_kept 6400: k = 100 < the 1/8 grid's 2048 pixels."""
+    cfg = TrainConfig(classes_num=7, batch_size=2, input_size=(256, 256), imsize_for_adv=33,
+                      adv_conv_dim=16, num_steps=40, compute_dtype="float32", device="cuda",
+                      ohem=True, ohem_min_kept=6400)
+    student = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25,
+                        generator=torch.Generator().manual_seed(5))
+    _replay_equals_eager(exact_cuda, cfg, _item7_state(exact_cuda, cfg, student), 7)
+
+
+def test_remat_relaunches_k6_and_equals_plain_on_the_card(exact_cuda):
+    """A fused, rematerialised R18 student: its train forward + backward
+    launches K6 once more per block ABN (the recompute), and gives the plain
+    student's outputs, gradients and running statistics (f32, deterministic
+    cuDNN: the recompute runs the same kernels)."""
+    x = torch.randn(2, 3, 96, 96, generator=torch.Generator().manual_seed(0)).to(exact_cuda)
+    runs = {}
+    for remat in (False, True):
+        model = ResPSPNet("basic", (1, 1, 1, 1), 7, width_mult=0.25, drop_rate=0.0, bn_fused=True,
+                          remat=remat, generator=torch.Generator().manual_seed(4))
+        model = model.to(exact_cuda).train()
+        fused_bn.bn_act.launches = 0
+        outs = model(x)
+        fwd = fused_bn.bn_act.launches
+        (outs[0].float().square().sum() + outs[1].float().sum()).backward()
+        torch.cuda.synchronize()
+        runs[remat] = (fwd, fused_bn.bn_act.launches, [o.detach() for o in outs],
+                       {k: p.grad for k, p in model.named_parameters()}, model.state_dict())
+    (f0, t0, o0, g0, s0), (f1, t1, o1, g1, s1) = runs[False], runs[True]
+    assert f0 == t0 == f1 and t1 - f1 == 4 * 3  # 4 BasicBlocks of 3 ABNs each
+    for a, b in zip(o0, o1):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for k in g0:
+        torch.testing.assert_close(g0[k], g1[k], rtol=1e-5, atol=1e-6)
+    for k in s0:
+        torch.testing.assert_close(s0[k], s1[k], rtol=1e-6, atol=1e-7)
 
 
 class _SyncingStudent(ResPSPNet):

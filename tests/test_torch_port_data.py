@@ -263,8 +263,11 @@ def test_lists_equal_jax(tmp_path):
         with open(want) as a, open(ref_want) as b:
             assert a.read() == b.read()
     assert ensure_list("cityscapes", "", "missing.lst") == "missing.lst"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        ensure_list("voc", root, str(tmp_path / "voc" / "train_aug.txt"))
+    # VOC and CamVid lists are generated too (tests/test_torch_port_item7.py);
+    # a root without their trees leaves the path for the loader to refuse, as in JAX
+    for ds, name in (("voc", "train_aug.txt"), ("camvid", "train.lst")):
+        want = str(tmp_path / ds / name)
+        assert ensure_list(ds, root, want) == jax_lists.ensure_list(ds, root, want) == want
 
 
 def test_native_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

@@ -390,9 +390,13 @@ def test_test_config_matches_jax(argv):
     assert TestConfig.from_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
-def test_test_config_refuses_voc():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        TestConfig(data_set="voc")
+def test_test_config_accepts_voc():
+    """The VOC test sweep is ported: its flags parse as the JAX TestConfig's."""
+    argv = ["--data-set", "voc", "--classes_num", "21"]
+    ours = dataclasses.asdict(TestConfig.from_args(argv))
+    assert ours.pop("device") == "cuda"
+    assert ours == dataclasses.asdict(JaxTestConfig.from_args(argv))
+    assert TestConfig(data_set="voc").data_set == "voc"
 
 
 @pytest.mark.parametrize("flags", [["--scales", "0.75,1.0,1.25", "--flip", "true"],

@@ -328,7 +328,8 @@ def test_cli_resume_trains_only_the_remaining_steps(tmp_path):
                                 dict(num_workers=4), dict(decode_cache_dir="cache"),
                                 dict(profile_dir="prof"), dict(unroll_steps=2),
                                 dict(wire_format="u8"), dict(scales=(0.75, 1.0, 1.25)),
-                                dict(flip=True)])
+                                dict(flip=True), dict(ohem=True), dict(student_arch="espnet"),
+                                dict(remat=True)])
 def test_config_accepts_the_ported_options(kw):
     cfg = TrainConfig(**kw)
     for k, v in kw.items():
@@ -336,8 +337,6 @@ def test_config_accepts_the_ported_options(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(ohem=True), "item 7"),
-    (dict(student_arch="espnet"), "item 7"),
     (dict(num_data_shards=2), "item 8"),
     (dict(num_model_shards=2), "item 8"),
     (dict(num_slices=2), "item 8"),

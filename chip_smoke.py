@@ -12,7 +12,8 @@ prefetch, checkpoints, SIGTERM and resume), the multi-step loop as
 CUDA-graph replays (`--unroll-steps`), the other inference modes
 (multiscale+flip, sliding tiles, batched groups, the u8 image wire, the
 test-set submission of `cli.test`), and the CamVid ESPNet-C distillation
-recipe with OHEM, `--remat` and the VOC CLIs. Each phase prints one line
+recipe with OHEM, `--remat` and the VOC CLIs, and data parallelism over
+processes. Each phase prints one line
 (phases 17 and 18 one a part) and any failure ends the run with a non-zero
 exit:
 
@@ -175,7 +176,33 @@ exit:
      --unroll-steps 4 (an eager chunk, a capture and its replay, the eval at
      360×480: K1 once a val frame), the CamVid u8 eval wire's confusion
      equal to the f32 one, `cli.eval --data-set voc` (R18 at 21 classes,
-     505×505) and `cli.test --data-set voc` (one class-id PNG a test id).
+     505×505) and `cli.test --data-set voc` (one class-id PNG a test id);
+ 19. data_parallel: phase 11's fused models through the data-parallel path
+     (`parallel/`, sync BN, rank shares, the flat gradient all-reduce). (a)
+     A world-1 NCCL group: the loop (unroll 4) with ABN groups set, an eager
+     chunk, a capture and its replay, against phase 16's loop from the same
+     state on the same chunks: every tensor bit-equal (every share is ×1),
+     the collectives per step and their bytes, both captures' ms, replays
+     timed in turns (ms per step, img/s), a profiled replay of each (busy
+     share, K4–K8 counted by name) and the Python counts of an eager step.
+     (b) Two gloo ranks on the one card (CUDA tensors; eager: gloo cannot be
+     captured), batch 4 each, against the one-process step at batch 8 on
+     the same card, both in f32 with TF32 off (phase 9's setting): losses
+     within phase 9's rtol/atol, updates within 2 % (phase 16's rule and
+     floor), the ranks bit-identical, K4/K5 once and K6–K8 at the fused
+     counts a rank step. (c) With N ≥ 2 cards, N NCCL ranks, one a card
+     (`nvidia-smi topo -m` printed first): batch 8/N a rank in f32 (an
+     eager step, then a captured one and its replay) against the one-card
+     batch-8 loop (the eager step at phase 9's tolerances and the 2 % rule;
+     the replayed step, which starts from each side's own first update, at
+     the port's second-step envelope), the ranks' states equal by digest;
+     batch 8 a rank in bf16 replayed (ms per step, img/s over the N cards,
+     capture ms, busy share, K4–K8 per replay); `cli.train
+     --num-data-shards N` on synthetic crops (a checkpoint at step 2, a
+     resume to step 4) and `cli.eval --num-data-shards N` on fake frames,
+     whose mIoU must equal the one-card sweep's. On one card (c) prints one
+     line saying it did not run. `python3 chip_smoke.py --only
+     data_parallel` runs phases 1, 2 and 19 alone (the four-card run).
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -190,6 +217,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import inspect
 import io
 import json
@@ -248,6 +276,7 @@ from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
     _moments,
     abn_normalize,
     abn_train,
+    set_process_group,
 )
 from structure_knowledge_distillation_tpu_torch.ops.conv3x3 import _route, conv3x3, conv3x3_plain
 from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
@@ -271,6 +300,12 @@ from structure_knowledge_distillation_tpu_torch.ops.upsampled_ce import (
     upsampled_ce_loss_dsn,
     upsampled_ce_loss_dsn_plain,
     upsampled_ce_loss_plain,
+)
+from structure_knowledge_distillation_tpu_torch.parallel import (
+    all_reduce_sum,
+    launch,
+    shard_rows,
+    world_of,
 )
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.evaluate import (
@@ -1694,11 +1729,12 @@ def phase_train_cityscapes(device: torch.device, card: str, synthetic_step_ms: f
     return stats
 
 
-def _full_state(cfg, device: torch.device, bn_fused: bool) -> tuple:
+def _full_state(cfg, device: torch.device, bn_fused: bool,
+                dtype: torch.dtype = torch.bfloat16) -> tuple:
     """Phase 11's models, fused or not: the R101 teacher from seed 2 with
     phase 8's running statistics, student and D drawn from a generator
-    seeded as `KDTrainer` seeds it; returns (state, generator)."""
-    dtype = torch.bfloat16
+    seeded as `KDTrainer` seeds it, computing in `dtype`; returns (state,
+    generator)."""
     teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), NUM_CLASSES, device=device,
                         generator=torch.Generator().manual_seed(2), dtype=dtype,
                         bn_fused=bn_fused)
@@ -2760,11 +2796,392 @@ def phase_camvid_espnet(device: torch.device, card: str) -> dict:
     return {**parts, "record": ce["record"]}
 
 
-def main() -> int:
+# --------------------------------------------------------- phase 19: data parallel
+DP_CLI_STEPS = 4
+# the replayed second step starts from each side's own first update, so its
+# losses carry that step's f32 rounding: the port's CPU step tests' envelope
+# for a second step (tests/test_torch_port_train_step.py LOSS_RTOL/ATOL[1])
+DP_STEP2_RTOL, DP_STEP2_ATOL = 5e-2, 2e-2
+DP_EVAL_FRAMES = (("val", 5),)
+DP_TIMEOUT_S = 900.0
+
+
+def _state_flat(state: KDTrainState) -> dict:
+    """Every tensor of `_loop_state`, on the host."""
+    return {k: v.cpu() for k, v in _loop_state(state).items()}
+
+
+def _param_names(state: KDTrainState) -> set:
+    return {f"{n}.{k}" for n, m in (("student", state.student), ("disc", state.discriminator))
+            for k, _ in m.named_parameters()}
+
+
+def _check_losses(got: list, want: list, what: str, rtol: float = STEP_LOSS_RTOL,
+                  atol: float = STEP_LOSS_ATOL) -> dict:
+    """Per-step metric dicts within rtol/atol (phase 9's by default); the
+    largest relative difference of each metric."""
+    worst = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, b in w.items():
+            a = g[k]
+            check(math.isfinite(a) and abs(a - b) <= rtol * abs(b) + atol,
+                  f"{what} step {i} {k}: {a} vs {b}")
+            worst[k] = max(worst.get(k, 0.0), abs(a - b) / max(abs(b), 1e-30))
+    return worst
+
+
+def _chunk_metrics(metrics: dict) -> list:
+    n = len(next(iter(metrics.values())))
+    return [{k: float(v[i]) for k, v in metrics.items()} for i in range(n)]
+
+
+def _rank_rows(chunks: list, rank: int, world: int) -> list:
+    return [(torch.stack([shard_rows(x, rank, world) for x in images]),
+             torch.stack([shard_rows(x, rank, world) for x in labels]))
+            for images, labels in chunks]
+
+
+def _dp_loop_run(group, device: torch.device, chunks: list, timed: int = 0,
+                 unroll: int = LOOP_UNROLL, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Phase 11's fused state (computing in `dtype`) as one rank of `group`
+    (ABNs synced, the data-parallel loop of `unroll` steps): the eager
+    warm-up chunk, the capture and its replay of the next, then `timed`
+    replays of the last chunk. Returns the metrics, the state after each of
+    the first two chunks (on the host), the collectives and kernel launches
+    of the eager chunk, and the times."""
+    cfg = _train_config(unroll_steps=unroll, compute_dtype=(
+        "float32" if dtype == torch.float32 else "bfloat16"))
+    state, gen = _full_state(cfg, device, bn_fused=True, dtype=dtype)
+    if group is not None:
+        set_process_group(state.student, group)
+        set_process_group(state.discriminator, group)
+    loop = make_train_loop(cfg, unroll, group)
+    # zero momentum buffers before the first update (which sets them to the
+    # gradient, as none would), so the start holds every tensor compared
+    for module, opt in ((state.student, state.g_opt), (state.discriminator, state.d_opt)):
+        momentum_buffers(opt, [p for p in module.parameters() if p.requires_grad])
+    start = _state_flat(state)
+    zero_counts()
+    all_reduce_sum.calls = all_reduce_sum.bytes = 0
+    m0 = loop(state, *chunks[0], unroll, gen)
+    torch.cuda.synchronize(device)
+    counts = read_counts()
+    collectives = {"calls": all_reduce_sum.calls / unroll,
+                   "bytes": all_reduce_sum.bytes / unroll}
+    after_eager = _state_flat(state)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    m1 = loop(state, *chunks[1], unroll, gen)
+    torch.cuda.synchronize(device)
+    capture_wall = 1e3 * (time.perf_counter() - t0)
+    check(loop.captures == 1 and loop.replays == 1, "the loop did not capture its second chunk")
+    after_graph = _state_flat(state)
+    times = [_timed_chunk(lambda: loop(state, *chunks[-1], unroll, gen)) / unroll
+             for _ in range(timed)]
+    return {"state": state, "loop": loop, "gen": gen, "metrics_eager": _chunk_metrics(m0),
+            "metrics_graph": _chunk_metrics(m1), "start": start, "after_eager": after_eager,
+            "after_graph": after_graph,
+            "counts_eager_per_step": {k: counts[k] / unroll for k in GRAPH_KERNELS},
+            "collectives_per_step": collectives, "capture_ms": loop.capture_ms,
+            "capture_chunk_wall_ms": capture_wall, "ms_per_step": times,
+            "params": _param_names(state)}
+
+
+def _dp_world1(device: torch.device, chunks: list) -> dict:
+    """(a) A world-1 NCCL group: the data-parallel fused loop against phase
+    16's loop from the same state on the same chunks; replays timed in
+    turns; one profiled replay of each counts its kernels."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory(prefix="skd_dp_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "rdv"), 1),
+                                rank=0, world_size=1, device_id=device)
+        try:
+            group = dist.group.WORLD
+            dp = _dp_loop_run(group, device, chunks)
+            ref = _dp_loop_run(None, device, chunks)
+            eager_cmp = _compare_loop_states(dp["start"], ref["after_eager"], dp["after_eager"],
+                                             dp["params"])
+            graph_cmp = _compare_loop_states(dp["start"], ref["after_graph"], dp["after_graph"],
+                                             dp["params"])
+            bit_equal = all(torch.equal(ref["after_graph"][k], v)
+                            for k, v in dp["after_graph"].items())
+            losses = _check_losses(dp["metrics_eager"] + dp["metrics_graph"],
+                                   ref["metrics_eager"] + ref["metrics_graph"], "world-1")
+            ms = {"data_parallel": [], "one_card": []}
+            for _ in range(LOOP_TURNS):
+                for name, run in (("data_parallel", dp), ("one_card", ref)):
+                    ms[name].append(_timed_chunk(
+                        lambda: run["loop"](run["state"], *chunks[-1], LOOP_UNROLL, run["gen"]))
+                        / LOOP_UNROLL)
+            profiled = {name: _profiled_chunk(
+                lambda: run["loop"](run["state"], *chunks[-1], LOOP_UNROLL, run["gen"]))
+                for name, run in (("data_parallel", dp), ("one_card", ref))}
+            n_teacher = _fused_abns(dp["state"].teacher)
+            n_student = _fused_abns(dp["state"].student)
+            expect = {"K4": LOOP_UNROLL, "K5": LOOP_UNROLL,
+                      "K6": (n_teacher + n_student) * LOOP_UNROLL,
+                      "K7": n_student * LOOP_UNROLL, "K8": n_student * LOOP_UNROLL}
+            for name, p in profiled.items():
+                check(p["kernels"] == expect,
+                      f"one {name} replay launched {p['kernels']}, expected {expect}")
+            per_step = {k: v / LOOP_UNROLL for k, v in expect.items()}
+            check(dp["counts_eager_per_step"] == per_step,
+                  f"an eager data-parallel step launched {dp['counts_eager_per_step']}")
+        finally:
+            dist.destroy_process_group()
+    out = {"bit_equal_to_one_card": bit_equal, "eager": eager_cmp, "graph": graph_cmp,
+           "loss_max_rel_diff": losses, "collectives_per_step": dp["collectives_per_step"],
+           "capture_ms": dp["capture_ms"], "one_card_capture_ms": ref["capture_ms"],
+           "ms_per_step": ms,
+           "images_per_second": {k: [TRAIN_BATCH * 1e3 / t for t in v] for k, v in ms.items()},
+           "launches_per_step": dp["counts_eager_per_step"],
+           "launches_per_replay": profiled["data_parallel"]["kernels"],
+           "busy_share": {k: p["busy_share"] for k, p in profiled.items()}}
+    del dp, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_chunks(device: torch.device) -> list:
+    """Phase 19's three chunks of 4 synthetic batches of 8, made alike in
+    every process from one seed."""
+    return _device_chunks(_train_config(), 3, device, seed=6)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 convolutions and matmuls in full f32 (phase 9's setting)."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _worst_updates(start: dict, ref: dict, got: dict, n: int = 6) -> list:
+    """The n tensors whose change over a step differs most, relative L2."""
+    out = []
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        d = (r - start[k]).double()
+        nr = d.norm().item()
+        if nr > 0:
+            out.append(((got[k] - start[k]).double().sub(d).norm().item() / nr, k))
+    return sorted(out)[-n:]
+
+
+def _dp_gloo_rank(group) -> dict:
+    """(b) One gloo rank on the one card: the fused state, its rows of the
+    first batch of 8, one eager data-parallel step in f32 with TF32 off
+    (CUDA tensors, gloo collectives); the launches, the losses and the
+    state."""
+    torch.set_num_threads(2)
+    device = torch.device("cuda", 0)
+    rank, world = world_of(group)
+    cfg = _train_config(compute_dtype="float32")
+    state, gen = _full_state(cfg, device, bn_fused=True, dtype=torch.float32)
+    set_process_group(state.student, group)
+    set_process_group(state.discriminator, group)
+    step = make_train_step(cfg, group)
+    images, labels = _rank_rows(_dp_chunks(device)[:1], rank, world)[0]
+    zero_counts()
+    with _no_tf32():
+        metrics = {k: float(v) for k, v in
+                   step(state, images[0].float(), labels[0], gen).items()}
+    torch.cuda.synchronize(device)
+    counts = {k: read_counts()[k] for k in GRAPH_KERNELS}
+    return {"metrics": [metrics], "counts": counts, "state": _state_flat(state)}
+
+
+def _dp_gloo(device: torch.device, chunks: list) -> dict:
+    """(b) Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device) against the one-process step at batch 8 on the same card, both
+    in f32 with TF32 off (phase 9's setting: in bf16 a step's update is
+    not determined to 2 % by the order of its sums)."""
+    t0 = time.perf_counter()
+    ranks = launch(_dp_gloo_rank, 2, backend="gloo", timeout=DP_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    cfg = _train_config(compute_dtype="float32")
+    state, gen = _full_state(cfg, device, bn_fused=True, dtype=torch.float32)
+    for module, opt in ((state.student, state.g_opt), (state.discriminator, state.d_opt)):
+        momentum_buffers(opt, [p for p in module.parameters() if p.requires_grad])
+    start = _state_flat(state)
+    step = make_train_step(cfg)
+    with _no_tf32():
+        ref = [{k: float(v) for k, v in
+                step(state, chunks[0][0][0].float(), chunks[0][1][0], gen).items()}]
+    ref_state = _state_flat(state)
+    worst = _worst_updates(start, ref_state, ranks[0]["state"])
+    print(f"phase 19 data_parallel (b): worst update differences {worst}", flush=True)
+    for r in ranks[1:]:
+        for k, v in ranks[0]["state"].items():
+            check(torch.equal(r["state"][k], v), f"the gloo ranks differ in {k}")
+    n_teacher, n_student = _fused_abns(state.teacher), _fused_abns(state.student)
+    expect = {"K4": 1, "K5": 1, "K6": n_teacher + n_student, "K7": n_student, "K8": n_student}
+    for r in ranks:
+        check(r["counts"] == expect, f"a gloo rank's step launched {r['counts']}, "
+                                     f"expected {expect}")
+    losses = [_check_losses(r["metrics"], ref, "gloo rank") for r in ranks]
+    tensors = _compare_loop_states(start, ref_state, ranks[0]["state"], _param_names(state))
+    del state
+    torch.cuda.empty_cache()
+    return {"ranks": 2, "seconds": took, "launches_per_step": ranks[0]["counts"],
+            "loss_max_rel_diff": losses[0], "ranks_bit_identical": True, **tensors}
+
+
+def _dp_f32_steps(chunks: list) -> list:
+    """The first step of each chunk, in f32: the chunks of the N-rank
+    equivalence, one step each (an eager step, then a captured one)."""
+    return [(images[:1].float(), labels[:1]) for images, labels in chunks]
+
+
+def _dp_nccl_rank(group) -> dict:
+    """(c) One NCCL rank of N on `cuda:rank`: its rows of the global batch 8
+    in f32 with TF32 off (an eager step, then a captured one and its
+    replay: phase 9's setting, as (b)), then a fresh bf16 loop at batch 8 a
+    rank (global 8·N), replays timed."""
+    torch.set_num_threads(2)
+    rank, world = world_of(group)
+    device = torch.device("cuda", rank)
+    full = _dp_chunks(device)
+    with _no_tf32():
+        small = _dp_loop_run(group, device, _rank_rows(_dp_f32_steps(full), rank, world),
+                             unroll=1, dtype=torch.float32)
+    # the states travel from rank 0 only; every rank sends a digest
+    digest = hashlib.sha256()
+    for k in sorted(small["after_graph"]):
+        digest.update(small["after_graph"][k].reshape(-1).view(torch.uint8).numpy().tobytes())
+    out = {"metrics": small["metrics_eager"] + small["metrics_graph"],
+           "digest": digest.hexdigest(),
+           **({"after_eager": small["after_eager"], "after_graph": small["after_graph"]}
+              if rank == 0 else {}),
+           "collectives_per_step": small["collectives_per_step"],
+           "counts_eager_per_step": small["counts_eager_per_step"],
+           "capture_ms": small["capture_ms"]}
+    del small
+    torch.cuda.empty_cache()
+    big = _dp_loop_run(group, device, full, timed=LOOP_TURNS)
+    profiled = _profiled_chunk(
+        lambda: big["loop"](big["state"], *full[-1], LOOP_UNROLL, big["gen"]))
+    out.update(ms_per_step_batch8=big["ms_per_step"], capture_ms_batch8=big["capture_ms"],
+               busy_share_batch8=profiled["busy_share"], kernels_per_replay=profiled["kernels"])
+    return out
+
+
+def _dp_cli(n: int, device: torch.device) -> dict:
+    """(c) `cli.train --num-data-shards n` (synthetic, a checkpoint at step 2,
+    a resume to step 4) and `cli.eval --num-data-shards n` on fake frames
+    against `--num-data-shards 1`."""
+    with tempfile.TemporaryDirectory(prefix="skd_dp_cli_") as work:
+        common = ["--data-set", "synthetic", "--batch-size", str(TRAIN_BATCH),
+                  "--input-size", "%d,%d" % TRAIN_CROP, "--log-every", "1", "--eval-every", "2",
+                  "--device", device.type, "--num-data-shards", str(n),
+                  "--snapshot-dir", os.path.join(work, "snap"), "--S_ckpt_path", ""]
+        t0 = time.perf_counter()
+        train_cli.main(common + ["--num-steps", "2", "--log-path", os.path.join(work, "log1")])
+        train_cli.main(common + ["--num-steps", str(DP_CLI_STEPS), "--S_resume", "true",
+                                 "--log-path", os.path.join(work, "log2")])
+        train_s = time.perf_counter() - t0
+        rows1, rows2 = _scalars(os.path.join(work, "log1")), _scalars(os.path.join(work, "log2"))
+        steps = [r["step"] for r in rows1 + rows2 if "g_loss" in r]
+        check(steps == list(range(1, DP_CLI_STEPS + 1)), f"the N-rank CLI logged steps {steps}")
+        for r in rows1 + rows2:
+            check(all(math.isfinite(v) for v in r.values()), f"a value is not finite: {r}")
+        latest = sorted(os.listdir(os.path.join(work, "snap", "latest")))
+        check(latest == ["step_00000002.pth", "step_00000004.pth"], f"latest/ holds {latest}")
+        root = os.path.join(work, "cityscapes")
+        write_fake_cityscapes(root, frames=DP_EVAL_FRAMES, seed=5)
+        lists = make_cityscapes_lists(root, os.path.join(work, "list"))
+        base = ["--data-dir", root, "--data-list", lists["val"], "--device", device.type]
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = eval_cli.main(base)
+            t0 = time.perf_counter()
+            many = eval_cli.main(base + ["--num-data-shards", str(n)])
+            eval_s = time.perf_counter() - t0
+        check(many == one, f"the {n}-rank sweep's mIoU {many} differs from one card's {one}")
+    return {"train_seconds": train_s, "steps": steps, "latest": latest,
+            "img_per_sec": [r["img_per_sec"] for r in rows2 if "img_per_sec" in r],
+            "eval_miou": many, "eval_miou_one_card": one, "eval_seconds": eval_s}
+
+
+def _dp_multi(n: int, device: torch.device, ref: dict) -> dict:
+    """(c) N NCCL ranks, one a card, against the one-card loop `ref`."""
+    t0 = time.perf_counter()
+    ranks = launch(_dp_nccl_rank, n, backend="nccl", timeout=DP_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    check(len({r["digest"] for r in ranks}) == 1, "the NCCL ranks' states differ")
+    # the eager first step from the same state: phase 9's tolerances and the
+    # 2 % rule on every update; the replayed second step from each side's
+    # own first update: its losses at the second-step envelope, and its
+    # state's differences reported
+    losses = _check_losses(ranks[0]["metrics"][:1], ref["metrics_eager"], f"{n}-rank eager")
+    losses_replay = _check_losses(ranks[0]["metrics"][1:], ref["metrics_graph"],
+                                  f"{n}-rank replay", DP_STEP2_RTOL, DP_STEP2_ATOL)
+    eager_cmp = _compare_loop_states(ref["start"], ref["after_eager"], ranks[0]["after_eager"],
+                                     ref["params"])
+    graph_worst = _worst_updates(ref["start"], ref["after_graph"], ranks[0]["after_graph"])
+    ms = [statistics.median(r["ms_per_step_batch8"]) for r in ranks]
+    return {"ranks": n, "seconds": took, "loss_max_rel_diff": losses,
+            "replay_loss_max_rel_diff": losses_replay, "eager": eager_cmp,
+            "replay_worst_update_differences": graph_worst,
+            "collectives_per_step": ranks[0]["collectives_per_step"],
+            "launches_per_step": ranks[0]["counts_eager_per_step"],
+            "capture_ms": ranks[0]["capture_ms"],
+            "batch8_per_rank": {"ms_per_step": [r["ms_per_step_batch8"] for r in ranks],
+                                "images_per_second": n * TRAIN_BATCH * 1e3 / max(ms),
+                                "capture_ms": [r["capture_ms_batch8"] for r in ranks],
+                                "busy_share": [r["busy_share_batch8"] for r in ranks],
+                                "kernels_per_replay": ranks[0]["kernels_per_replay"]},
+            "cli": _dp_cli(n, device)}
+
+
+def phase_data_parallel(device: torch.device, card: str) -> dict:
+    """Phase 19: data parallelism. (a) a world-1 NCCL group against phase
+    16's loop; (b) two gloo ranks on the one card against the one-process
+    step; (c) with two or more cards, N NCCL ranks."""
+    chunks = _dp_chunks(device)
+    t0 = time.perf_counter()
+    world1 = _dp_world1(device, chunks)
+    gloo = _dp_gloo(device, chunks)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        run = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                             timeout=60)
+        topo = run.stdout + run.stderr
+        print("phase 19 data_parallel (c): nvidia-smi topo -m\n" + topo, flush=True)
+        with _no_tf32():
+            ref = _dp_loop_run(None, device, _dp_f32_steps(chunks), unroll=1,
+                               dtype=torch.float32)
+        multi = _dp_multi(n, device, ref)
+        del ref
+        torch.cuda.empty_cache()
+    else:
+        multi = {"ran": False, "why": f"{n} CUDA device: N NCCL ranks need one card each"}
+        print(f"phase 19 data_parallel (c): not run: {multi['why']}", flush=True)
+    phase(19, "data_parallel", card=card, seconds=time.perf_counter() - t0,
+          model="R101 teacher -> R18 student, bn_fused, full width, bf16 convs, batch 8, 512^2",
+          world1_nccl=world1, gloo_two_ranks=gloo, nccl_ranks=multi)
+    return {"world1": world1, "gloo": gloo, "multi": multi}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     card = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
+    if argv == ["--only", "data_parallel"]:
+        # phase 19 alone, for a run on several cards
+        phase_data_parallel(device, card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
+    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel")
     k1 = phase_kernel(device)
     eval_stats = phase_slice(device)
     phase_gpu_vs_cpu(device)
@@ -2782,6 +3199,7 @@ def main() -> int:
     eval_modes = phase_eval_modes(device)
     camvid = phase_camvid_espnet(device, card)
     clis = camvid["clis"]
+    dp = phase_data_parallel(device, card)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
@@ -2833,7 +3251,8 @@ def main() -> int:
                          r18_train_launches=train["launches"][key], **camvid["record"][key],
                          r18_shape=ce[key])
         else:
-            entry.update(path="train", launches=train["launches"][key], **ce[key])
+            entry.update(path="train", launches=train["launches"][key], **ce[key],
+                         data_parallel_launches_per_rank_step=dp["gloo"]["launches_per_step"][key])
         kernels.append(entry)
     # K6–K8: launches of the fused train step's timed steps plus the fused
     # eval sweep's; errors and times at the shapes phase_bn_kernel names
@@ -2846,7 +3265,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": bn_source,
                         "replaces": f"{pallas_bn}:{line}", "path": "fused-ABN train/eval",
                         "launches": train_n + eval_n, "train_launches": train_n,
-                        "eval_launches": eval_n, **bn[key]})
+                        "eval_launches": eval_n, **bn[key],
+                        "data_parallel_launches_per_rank_step":
+                            dp["gloo"]["launches_per_step"][key]})
     # K9: two kernels for one TPU kernel, chosen by dtype and channel counts;
     # each entry holds the first probe case it ran (wgmma: (8,256,256,64)->64
     # bf16; direct: the same conv in f32, and its bf16 time at that shape)

@@ -12,8 +12,13 @@ generated from the tree), the ResNet-18 PSPNet and ESPNet-C students
 (`--student-arch resnet18|espnet`) and every single-device sweep:
 whole-image single-scale, multiscale+flip (`--scales 0.75,1.0,1.25 --flip
 true`) and sliding tiles (`--whole false --tile-size 512,512`).
-`--num-data-shards` > 1 is ROADMAP Queue A item 8 (DDP) and
-`--num-spatial-shards` > 1 is not ported (XLA's halo exchange); both raise.
+`--num-data-shards N` with `--whole true` and no `--output-dir` shards the
+sweep over N ranks, one per card (`--device cpu`: N processes over gloo):
+each rank decodes and runs its frame of every group of N, and the
+confusion is all-reduced (`evaluate_sharded` with a process group; scales
+and flip as given). In any other mode the flag is ignored with the JAX
+CLI's warning and the sweep runs on one device. `--num-spatial-shards` > 1
+is not ported (XLA's halo exchange) and raises.
 The port reads `.pth` checkpoints only; a JAX `.msgpack` checkpoint crosses
 over as the state dict that the JAX package's `export_torch_respspnet`
 writes (R18), or that `training/checkpoint.py::espnet_state_dict_from_jax`
@@ -24,6 +29,7 @@ keeps seeded random weights (seed 0).
 from __future__ import annotations
 
 import argparse
+import logging
 
 import numpy as np
 import torch
@@ -31,15 +37,25 @@ import torch
 from structure_knowledge_distillation_tpu_torch.data import (
     DATASET_EVAL_DEFAULTS,
     DATASETS,
+    EvalShard,
     batch_iterator,
     ensure_list,
 )
 from structure_knowledge_distillation_tpu_torch.models import ESPNetC, student_model
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
-from structure_knowledge_distillation_tpu_torch.training.evaluate import evaluate_main
+from structure_knowledge_distillation_tpu_torch.parallel import (
+    backend_for,
+    launch,
+    rank_device,
+    world_of,
+)
+from structure_knowledge_distillation_tpu_torch.training.evaluate import (
+    evaluate_main,
+    evaluate_sharded,
+)
 
-SHARDED_ITEM = ("the val sweep sharded across devices is ROADMAP Queue A item 8 'DDP' "
-                "(the port runs on one card)")
+log = logging.getLogger(__name__)
+
 SPATIAL_ITEM = ("height-sharded eval (evaluate_spatial, XLA's halo exchange) is ROADMAP "
                 "'Not ported'")
 
@@ -111,11 +127,26 @@ def main(argv=None):
                    help="torch device; a host without CUDA needs --device cpu")
     args = p.parse_args(argv)
 
-    if args.num_data_shards > 1:
-        raise NotImplementedError(SHARDED_ITEM)
     if args.num_spatial_shards > 1:
         raise NotImplementedError(SPATIAL_ITEM)
-    device = torch.device(args.device)
+    if args.num_data_shards > 1 and args.whole and not args.output_dir:
+        mean_iu, iu_array = launch(_sharded_sweep, args.num_data_shards, args,
+                                   backend=backend_for(args.device))[0]
+    else:
+        if args.num_data_shards > 1:
+            # don't let the user believe the sweep was sharded (the JAX CLI's rule)
+            log.warning("shard flags ignored: data sharding supports only whole-image "
+                        "modes without --output-dir; running single-device")
+        mean_iu, iu_array = _sweep(args)
+    print(f"meanIU: {mean_iu:.6f}")
+    print("IU_array:", np.array2string(iu_array, precision=4))
+    return mean_iu
+
+
+def _sweep(args, group=None):
+    """(mean IU, IU array) of the val sweep the flags select; with a process
+    group, this rank's part of the sharded whole-image sweep."""
+    device = rank_device(args.device, group)
     default_size, default_classes = DATASET_EVAL_DEFAULTS[args.data_set]
     out_h, out_w = (map(int, args.eval_size.split(","))
                     if args.eval_size else default_size)
@@ -125,17 +156,27 @@ def main(argv=None):
     data_list = ensure_list(args.data_set, args.data_dir, args.data_list)
     ds = DATASETS[args.data_set](args.data_dir, data_list, crop_size=(out_h, out_w),
                                  scale=False, mirror=False)
+    scales = tuple(float(s) for s in args.scales.split(","))
+    if group is not None:
+        rank, world = world_of(group)
+        loader = batch_iterator(EvalShard(ds, rank, world), 1, shuffle=False)
+        mean_iu, iu_array, _ = evaluate_sharded(
+            model, loader, num_classes, out_size=(out_h, out_w), batch=world, scales=scales,
+            flip=args.flip, device=device, group=group)
+        return mean_iu, iu_array
     loader = batch_iterator(ds, 1, shuffle=False, drop_last=False)
     mean_iu, iu_array, _ = evaluate_main(
         model, loader, num_classes, out_size=(out_h, out_w), eval_type="val",
         output_dir=args.output_dir or None, whole=args.whole,
-        tile_size=tuple(map(int, args.tile_size.split(","))),
-        scales=tuple(float(s) for s in args.scales.split(",")), flip=args.flip,
+        tile_size=tuple(map(int, args.tile_size.split(","))), scales=scales, flip=args.flip,
         device=device,
     )
-    print(f"meanIU: {mean_iu:.6f}")
-    print("IU_array:", np.array2string(iu_array, precision=4))
-    return mean_iu
+    return mean_iu, iu_array
+
+
+def _sharded_sweep(group, args):
+    """One spawned rank of `--num-data-shards N`."""
+    return _sweep(args, group)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,15 @@ runs each full chunk as one CUDA-graph replay on the card. `--profile-dir`
 writes a `torch.profiler` trace of steps [first + 9, first + 9 +
 `profile_steps`), a config field (5 by default) with no flag, as in the JAX
 package.
+
+`--num-data-shards N` trains data parallel on N ranks, one per card (`cuda:r`
+over NCCL; with `--device cpu`, N processes over gloo): the command spawns
+them (`parallel.launch`), or, started by a launcher that sets `WORLD_SIZE`
+(torchrun), is one of them. `--batch-size` stays the global batch; each
+rank loads only its slice of every global batch (`batch_iterator`'s
+`num_shards`/`shard_index`) and its frames of the val sweep
+(`data.EvalShard`). Rank 0 logs and writes the checkpoints; the command
+returns rank 0's best mean IU.
 """
 
 from __future__ import annotations
@@ -48,15 +57,18 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import (
     DATASET_EVAL_DEFAULTS,
     DATASETS,
     CityscapesDataset,
+    EvalShard,
     SyntheticSegDataset,
     batch_iterator,
     cast_batches,
@@ -64,6 +76,7 @@ from structure_knowledge_distillation_tpu_torch.data import (
     device_prefetch,
     ensure_list,
 )
+from structure_knowledge_distillation_tpu_torch.parallel import backend_for, join_group, launch
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt_io
 from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
 from structure_knowledge_distillation_tpu_torch.utils import log_init, save_args
@@ -133,12 +146,27 @@ def load_initial_variables(cfg: TrainConfig):
     return teacher, student, disc
 
 
+def _rank_main(group, argv) -> float:
+    """One spawned rank of `--num-data-shards N`."""
+    return main(argv)
+
+
 def main(argv=None) -> float:
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = TrainConfig.from_args(argv)
-    log_init(cfg.log_path, cfg.data_set)
-    for key, val in vars(cfg).items():
-        log.info("%s : %s", key, val)
-    save_args(cfg, os.path.join(cfg.log_path, "args.txt"))
+    if (cfg.num_data_shards > 1 and not dist.is_initialized()
+            and "WORLD_SIZE" not in os.environ):
+        return launch(_rank_main, cfg.num_data_shards, argv,
+                      backend=backend_for(cfg.device))[0]
+    group = join_group(cfg.num_data_shards, cfg.device)
+    lead = group is None or dist.get_rank(group) == 0
+    if lead:
+        log_init(cfg.log_path, cfg.data_set)
+        for key, val in vars(cfg).items():
+            log.info("%s : %s", key, val)
+        save_args(cfg, os.path.join(cfg.log_path, "args.txt"))
+    else:
+        logging.basicConfig(level=logging.WARNING, force=True)
 
     train_ds, val_ds = build_datasets(cfg)
     trainer = KDTrainer(cfg, *load_initial_variables(cfg))
@@ -149,8 +177,10 @@ def main(argv=None) -> float:
         else:
             trainer.try_resume()
 
+    # data parallel: every rank draws the same order and loads its slice
     host_batches = batch_iterator(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                                  num_workers=cfg.num_workers)
+                                  num_workers=cfg.num_workers, num_shards=trainer.world,
+                                  shard_index=trainer.rank)
     # a resumed or offset run trains only the REMAINING budget: the reference
     # loop is range(num_steps - last_step) after restoring (train_and_eval.py:
     # 20-22); the dataset holds num_steps batches
@@ -174,7 +204,9 @@ def main(argv=None) -> float:
         # islice above still counts steps
         host_iter = chunk_batches(host_iter, trainer.unroll)
     train_iter = device_prefetch(cast_batches(host_iter, image_dtype, label_dtype, image_mean),
-                                 cfg.device)
+                                 trainer.device)
+    if trainer.group is not None:
+        val_ds = EvalShard(val_ds, trainer.rank, trainer.world)
 
     def val_loader():
         return batch_iterator(val_ds, 1, shuffle=False)
@@ -188,7 +220,8 @@ def main(argv=None) -> float:
         # suspended inside its worker pool: close both ends
         train_iter.close()
         host_batches.close()
-    log.info("training done; best mean_IU %.4f", best)
+    if lead:
+        log.info("training done; best mean_IU %.4f", best)
     return best
 
 

@@ -11,7 +11,9 @@ Resume (`S_resume`, `D_resume`, `last_step`), the loader workers
 (`unroll_steps`, one CUDA-graph replay per chunk on the card), the step
 profiler (`profile_dir`, `profile_steps`), the OHEM task loss (`ohem`,
 `ohem_thresh`, `ohem_min_kept`), the ESPNet-C student (`student_arch`
-espnet), `remat` and the VOC and CamVid data sets are ported; the CamVid
+espnet), `remat`, the VOC and CamVid data sets and data parallelism
+(`num_data_shards` ranks, one per card; `batch_size` stays the global
+batch and must divide) are ported; the CamVid
 BGR mean replaces the default `input_mean_bgr` when `data_set` is camvid,
 as in the JAX package. Options
 of the JAX package that the port has not ported raise `NotImplementedError`
@@ -38,7 +40,6 @@ from typing import Optional, Tuple
 
 __all__ = ["TestConfig", "TrainConfig", "str2bool"]
 
-_ITEM8 = "ROADMAP Queue A item 8 'DDP'"
 _NOT_PORTED = "ROADMAP 'Not ported' (a TPU measure)"
 
 
@@ -159,13 +160,17 @@ class TrainConfig:
             raise ValueError(f"student_arch should be resnet18 or espnet, "
                              f"got {self.student_arch!r}")
         checks = (
-            (max(self.num_data_shards, self.num_model_shards, self.num_slices,
-                 self.num_spatial_shards) > 1, f"multi-device meshes are {_ITEM8}"),
+            (max(self.num_model_shards, self.num_slices, self.num_spatial_shards) > 1,
+             f"the JAX mesh's model, dcn and spatial axes (num_model_shards, num_slices, "
+             f"num_spatial_shards) are {_NOT_PORTED}"),
             (self.flat_sgd, f"flat_sgd is {_NOT_PORTED}"),
         )
         for failing, why in checks:
             if failing:
                 raise NotImplementedError(why)
+        if self.num_data_shards < 1 or self.batch_size % self.num_data_shards:
+            raise ValueError(f"the global batch {self.batch_size} is not divisible by "
+                             f"num_data_shards {self.num_data_shards}")
         if self.unroll_steps < 1:
             raise ValueError(f"unroll_steps should be >= 1, got {self.unroll_steps}")
         if self.compute_dtype not in ("bfloat16", "float32"):

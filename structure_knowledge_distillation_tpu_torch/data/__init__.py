@@ -4,6 +4,7 @@ from structure_knowledge_distillation_tpu_torch.data.cityscapes import (
     IMG_MEAN_BGR,
     CityscapesDataset,
     CityscapesTestDataset,
+    EvalShard,
     batch_iterator,
     id2trainid,
     trainid2id,
@@ -52,6 +53,7 @@ __all__ = [
     "Chunk",
     "CityscapesDataset",
     "CityscapesTestDataset",
+    "EvalShard",
     "batch_iterator",
     "cached_decode",
     "cast_batches",

@@ -308,9 +308,31 @@ def _stack(samples) -> tuple:
     )
 
 
+class EvalShard:
+    """One rank's frames of a val sweep sharded over `world` ranks, one frame
+    a rank (as the JAX sweep puts one a device): rank r takes frame r of
+    every group of `world`. Past the last frame the tail group's slots
+    repeat the last frame with its size set to (0, 0), so they count nowhere
+    and every rank runs the same number of frames. Only the rank's own
+    frames (and that repeat) are decoded."""
+
+    def __init__(self, dataset, rank: int, world: int):
+        self.dataset, self.rank, self.world = dataset, rank, world
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.world)
+
+    def __getitem__(self, index: int):
+        i = int(index) * self.world + self.rank
+        if i < len(self.dataset):
+            return self.dataset[i]
+        image, label, size, name = self.dataset[len(self.dataset) - 1]
+        return image, label, np.zeros_like(size), name
+
+
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = True, epochs: int = 1,
-                   num_workers: int = 0) -> Iterator[tuple]:
+                   drop_last: bool = True, epochs: int = 1, num_workers: int = 0,
+                   num_shards: int = 1, shard_index: int = 0) -> Iterator[tuple]:
     """Host batcher producing stacked NHWC numpy batches, in the JAX
     batcher's order: one seeded rng reshuffles the order at the start of
     every epoch.
@@ -323,7 +345,22 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0
     as with torch DataLoader workers and the JAX package's workers; the
     batch order does not. Workers never touch CUDA. Closing the generator
     (a consumer that stops early) cancels the batches not yet started and
-    shuts the pool down."""
+    shuts the pool down.
+
+    Data parallel (`num_shards` ranks, this one `shard_index`), as the JAX
+    batcher: `batch_size` stays the global batch, every rank draws the same
+    seeded order and takes its contiguous batch_size/num_shards slice of each
+    global batch, so the ranks' batches partition each global batch exactly
+    and a rank decodes only its own samples. The batch must divide, and a
+    short tail batch cannot be split (drop_last)."""
+    if batch_size % num_shards:
+        raise ValueError(f"global batch {batch_size} not divisible by "
+                         f"{num_shards} processes")
+    if num_shards > 1 and not drop_last:
+        raise ValueError("data-parallel sharding requires drop_last "
+                         "(a short tail batch cannot be partitioned evenly)")
+    local = batch_size // num_shards
+    lo, hi = shard_index * local, (shard_index + 1) * local
     rng = np.random.default_rng(seed)
     n = len(dataset)
     end = n - (n % batch_size) if drop_last else n
@@ -334,7 +371,7 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0
             if shuffle:
                 rng.shuffle(order)
             for start in range(0, end, batch_size):
-                yield order[start:start + batch_size]
+                yield order[start:start + batch_size][lo:hi]
 
     if num_workers <= 0:
         for idx in index_batches():

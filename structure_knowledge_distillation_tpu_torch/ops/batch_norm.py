@@ -19,6 +19,19 @@ forward and backward are the CUDA kernels K6–K8 on the card, differentiable
 once; eval mode through `fused_bn.abn_fused_eval` (K6), which has no
 gradient. The running update is the same in both paths. `BatchNorm2d` (the
 discriminator's) stays unfused: the WGAN-GP differentiates it twice.
+
+Sync BN (the JAX `axis_name`, the reference's `InPlaceABNSync`): an ABN
+whose `process_group` is set (`set_process_group`) normalises a rank's
+slice of the global batch with the statistics of the whole batch. The f32
+Σx and Σx² per channel are all-reduced before the normalisation, the
+backward's Σdh and Σdh·ŷ before dx, and n is the global count (every rank
+holds an equal slice) in the mean, the variance, dx and the running
+variance's Bessel factor. dweight and dbias stay the rank's own sums: the
+train step all-reduces every parameter gradient once, after the backward.
+The unfused backward's collectives are differentiable
+(`parallel.all_reduce_sum_differentiable`), so the WGAN-GP's double
+backward through the discriminator's BatchNorm2d keeps its cross-rank terms.
+Without a group nothing changes and no collective runs.
 """
 
 from __future__ import annotations
@@ -30,7 +43,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["ABN", "BatchNorm2d", "abn_normalize", "abn_train", "running_stats_frozen"]
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
+    all_reduce_sum_differentiable,
+    world_of,
+)
+
+__all__ = ["ABN", "BatchNorm2d", "abn_normalize", "abn_train", "running_stats_frozen",
+           "set_process_group"]
 
 ACTIVATIONS = ("none", "leaky_relu", "elu")
 
@@ -88,13 +107,19 @@ def _gamma(weight: torch.Tensor, eps: float, abs_gamma: bool) -> torch.Tensor:
     return w.abs() + eps if abs_gamma else w
 
 
-def _moments(xf: torch.Tensor):
+def _moments(xf: torch.Tensor, group=None):
     """Per-channel mean and biased variance over (N, H, W) of an f32 NCHW
-    tensor, as E[x²] − E[x]² clamped at 0 (the JAX `_moments`)."""
+    tensor, as E[x²] − E[x]² clamped at 0, and the count n (the JAX
+    `_moments`); with a process group, over the whole batch: Σx and Σx²
+    all-reduced (differentiably) and n times the world size."""
     dims = [0] + list(range(2, xf.dim()))
     n = xf.numel() // xf.shape[1]
-    mean = xf.sum(dims) / n
-    var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
+    s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
+    if group is not None:
+        s1, s2 = all_reduce_sum_differentiable(torch.stack([s1, s2]), group)
+        n *= world_of(group)[1]
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return mean, var, n
 
 
@@ -102,7 +127,7 @@ def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.view((1, -1) + (1,) * (ndim - 2))
 
 
-def _abn_train_grads(x, weight, bias, dz, eps, activation, slope, abs_gamma):
+def _abn_train_grads(x, weight, bias, dz, eps, activation, slope, abs_gamma, group=None):
     """The analytic backward of the JAX `abn_train` (`batch_norm.py:148-178`):
 
         dx = γ·invstd·(dh − edz/n − ŷ·eydz/n),
@@ -110,9 +135,11 @@ def _abn_train_grads(x, weight, bias, dz, eps, activation, slope, abs_gamma):
 
     Differentiable torch ops throughout, with the statistics recomputed from
     x, so that autograd can take its derivative again (the GP's double
-    backward), as JAX differentiates its custom-VJP backward."""
+    backward), as JAX differentiates its custom-VJP backward. With a process
+    group, the statistics, edz and eydz in dx are the global ones, through
+    differentiable all-reduces; dweight and dbias are the rank's own."""
     xf = x.float()
-    mean, var, n = _moments(xf)
+    mean, var, n = _moments(xf, group)
     inv_std = torch.rsqrt(var + eps)
     gamma = _gamma(weight, eps, abs_gamma)
     cv = lambda t: _channel_view(t, x.dim())  # noqa: E731
@@ -131,23 +158,26 @@ def _abn_train_grads(x, weight, bias, dz, eps, activation, slope, abs_gamma):
     dims = [0] + list(range(2, x.dim()))
     edz = dh.sum(dims)
     eydz = (dh * y).sum(dims)
-    dx = cv(gamma * inv_std) * (dh - cv(edz / n) - y * cv(eydz / n))
+    edz_all, eydz_all = edz, eydz
+    if group is not None:
+        edz_all, eydz_all = all_reduce_sum_differentiable(torch.stack([edz, eydz]), group)
+    dx = cv(gamma * inv_std) * (dh - cv(edz_all / n) - y * cv(eydz_all / n))
     dweight = (torch.sign(weight) if abs_gamma else torch.ones_like(weight)) * eydz
     return dx.to(x.dtype), dweight.to(weight.dtype), edz.to(weight.dtype)
 
 
 class _ABNTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, activation, slope, abs_gamma):
+    def forward(ctx, x, weight, bias, eps, activation, slope, abs_gamma, group):
         xf = x.float()
-        mean, var, _ = _moments(xf)
+        mean, var, _ = _moments(xf, group)
         inv_std = torch.rsqrt(var + eps)
         scale = _gamma(weight, eps, abs_gamma) * inv_std
         shift = bias.float() - mean * scale
         h = xf * _channel_view(scale, x.dim()) + _channel_view(shift, x.dim())
         z = _apply_activation(h, activation, slope).to(x.dtype)
         ctx.save_for_backward(x, weight, bias)
-        ctx.cfg = (eps, activation, slope, abs_gamma)
+        ctx.cfg = (eps, activation, slope, abs_gamma, group)
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
@@ -155,15 +185,17 @@ class _ABNTrain(torch.autograd.Function):
     def backward(ctx, dz, _dmean, _dvar):
         x, weight, bias = ctx.saved_tensors
         dx, dweight, dbias = _abn_train_grads(x, weight, bias, dz, *ctx.cfg)
-        return dx, dweight, dbias, None, None, None, None
+        return dx, dweight, dbias, None, None, None, None, None
 
 
 def abn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
-              activation: str = "none", slope: float = 0.01, abs_gamma: bool = True):
-    """Train-mode activated BN over the batch statistics of an NCHW tensor.
-    Returns (z, mean, var): z in x's dtype, the f32 batch mean and biased
-    variance for the running update (no gradient flows into those)."""
-    return _ABNTrain.apply(x, weight, bias, eps, activation, slope, abs_gamma)
+              activation: str = "none", slope: float = 0.01, abs_gamma: bool = True,
+              group=None):
+    """Train-mode activated BN over the batch statistics of an NCHW tensor
+    (with a process group, of the global batch). Returns (z, mean, var): z in
+    x's dtype, the f32 batch mean and biased variance for the running update
+    (no gradient flows into those)."""
+    return _ABNTrain.apply(x, weight, bias, eps, activation, slope, abs_gamma, group)
 
 
 class ABN(nn.Module):
@@ -172,7 +204,10 @@ class ABN(nn.Module):
     Eval mode normalises with the running statistics; train mode with the
     batch statistics, and then moves the running statistics by `momentum`
     (torch convention: running = (1 − m)·running + m·batch). `fused` takes
-    the fused kernels of `fused_bn` (the JAX `ABN(fused=True)`)."""
+    the fused kernels of `fused_bn` (the JAX `ABN(fused=True)`).
+    `process_group` (None: this process's batch alone) is the JAX
+    `axis_name`: train mode then uses the statistics of the global batch
+    (see the module's docstring); `set_process_group` sets it."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, activation: str = "none",
                  slope: float = 0.01, abs_gamma: bool = True, momentum: float = 0.1,
@@ -187,6 +222,7 @@ class ABN(nn.Module):
         self.abs_gamma = abs_gamma
         self.momentum = momentum
         self.fused = fused
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
@@ -206,10 +242,10 @@ class ABN(nn.Module):
                                  slope=self.slope, abs_gamma=self.abs_gamma)
         train_fn = fused_bn.abn_fused_train if self.fused else abn_train
         z, mean, var = train_fn(x, self.weight, self.bias, self.eps, self.activation,
-                                self.slope, self.abs_gamma)
+                                self.slope, self.abs_gamma, self.process_group)
         if getattr(_FROZEN, "on", False):
             return z
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * world_of(self.process_group)[1]
         bessel = n / max(n - 1, 1)
         m = self.momentum
         with torch.no_grad():
@@ -230,3 +266,11 @@ class BatchNorm2d(ABN):
                  device: torch.device | str | None = None):
         super().__init__(num_features, eps=eps, abs_gamma=False, momentum=momentum,
                          device=device)
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Set `process_group` on every ABN (and BatchNorm2d) of `model`: sync BN
+    over `group`'s ranks, or None for this process's batch alone."""
+    for m in model.modules():
+        if isinstance(m, ABN):
+            m.process_group = group

@@ -20,6 +20,12 @@ The JAX backward is a Pallas kernel with no derivative of its own, so
 `abn_fused_train`'s backward is `once_differentiable`: a second derivative
 raises. `abn_fused_eval` has no gradient at all and raises if asked for one.
 
+With a process group (sync BN, the JAX `axis_name`), `abn_fused_train`
+all-reduces the f32 statistics before K6 (pallas_bn.py:203-210) and K7's
+Σg' and Σg'·ŷ before K8 (:246-249), with n the global count; dweight and
+dbias stay the rank's own sums (the train step all-reduces the parameter
+gradients). The kernels themselves do not change.
+
 Each kernel wrapper takes its `*_plain` version on a CPU tensor and launches
 the hand-written CUDA kernel of `csrc/fused_bn.cu` on a CUDA tensor, or
 raises; `.launches` counts the kernel launches.
@@ -35,6 +41,10 @@ from structure_knowledge_distillation_tpu_torch.ops.batch_norm import (
     _channel_view,
     _gamma,
     _moments,
+)
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
+    all_reduce_sum,
+    world_of,
 )
 
 __all__ = [
@@ -247,12 +257,12 @@ def _scale_shift(mean, var, weight, bias, eps, abs_gamma):
 
 class _ABNFusedTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, activation, slope, abs_gamma):
-        mean, var, _ = _moments(x.float())
+    def forward(ctx, x, weight, bias, eps, activation, slope, abs_gamma, group):
+        mean, var, _ = _moments(x.float(), group)
         _, scale, shift = _scale_shift(mean, var, weight, bias, eps, abs_gamma)
         z = bn_act(x, scale, shift, activation, slope)
         ctx.save_for_backward(z, var, weight, bias)
-        ctx.cfg = (eps, activation, slope, abs_gamma)
+        ctx.cfg = (eps, activation, slope, abs_gamma, group)
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
@@ -260,26 +270,31 @@ class _ABNFusedTrain(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dz, _dmean, _dvar):
         z, var, weight, bias = ctx.saved_tensors
-        eps, activation, slope, abs_gamma = ctx.cfg
+        eps, activation, slope, abs_gamma, group = ctx.cfg
         gamma = _gamma(weight, eps, abs_gamma)
         beta = bias.float()
         sum_g, sum_gy = bn_grad_sums(z, dz, gamma, beta, activation, slope)
         n = z.numel() // z.shape[1]
+        all_g, all_gy = sum_g, sum_gy
+        if group is not None:
+            all_g, all_gy = all_reduce_sum([sum_g, sum_gy], group)
+            n *= world_of(group)[1]
         coef = gamma * torch.rsqrt(var + eps)
-        dx = bn_grad_input(z, dz, gamma, beta, coef, sum_g / n, sum_gy / n, activation, slope,
+        dx = bn_grad_input(z, dz, gamma, beta, coef, all_g / n, all_gy / n, activation, slope,
                            training=True)
         dweight = sum_gy * torch.sign(weight) if abs_gamma else sum_gy
-        return dx, dweight.to(weight.dtype), sum_g.to(bias.dtype), None, None, None, None
+        return dx, dweight.to(weight.dtype), sum_g.to(bias.dtype), None, None, None, None, None
 
 
 def abn_fused_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-5, activation: str = "leaky_relu", slope: float = 0.01,
-                    abs_gamma: bool = True):
+                    abs_gamma: bool = True, group=None):
     """Fused train-mode ABN over dim 1: returns (z, batch mean, biased batch
-    variance); z in x's dtype, the statistics f32 with no gradient. The
-    running-statistics update is the caller's job (reference
-    libs/functions.py:207-209). Differentiable once."""
-    return _ABNFusedTrain.apply(x, weight, bias, eps, activation, slope, abs_gamma)
+    variance); z in x's dtype, the statistics f32 with no gradient; with a
+    process group, those of the global batch. The running-statistics update
+    is the caller's job (reference libs/functions.py:207-209).
+    Differentiable once."""
+    return _ABNFusedTrain.apply(x, weight, bias, eps, activation, slope, abs_gamma, group)
 
 
 def abn_fused_eval(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -17,6 +17,13 @@ budget was a TPU measure.
 
 Logits are NCHW, float32 or bfloat16; the arithmetic is f32 and the
 gradient comes back in the logits' dtype. Labels are (N, H, W) integers.
+
+With a process group (`group`, data parallel), each function returns this
+rank's share of the global batch's loss: its own sum over the valid count
+of the whole batch, all-reduced (the JAX loss is Σloss / Σvalid over the
+global batch, losses/task.py:40-41; ranks differ in ignored pixels, so
+neither the sum nor the mean of per-rank means is it). K3/K5 get that
+global count, so the shares' gradients sum to the global loss's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from structure_knowledge_distillation_tpu_torch.ops.taps import (
     window_smem_bytes as _fwd_smem_bytes,
     window_tiling,
 )
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import all_reduce_sum
 
 __all__ = [
     "cross_entropy_ignore",
@@ -55,11 +63,12 @@ _FWD_SMEM_MAX = _SMEM_MAX - 3 * 4 * 256  # less the forward's static reduction b
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = 255) -> torch.Tensor:
+                         ignore_index: int = 255, group=None) -> torch.Tensor:
     """Mean CE over non-ignored pixels; logits (N, C, H, W), labels (N, H, W).
 
     lse − picked with f32 accumulation and a detached max shift, as the JAX
-    `losses/task.py::cross_entropy_ignore`."""
+    `losses/task.py::cross_entropy_ignore`. With a process group, the
+    rank's sum over the global count."""
     labels = labels.long()
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels))
@@ -68,23 +77,28 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     picked = logits.gather(1, safe[:, None])[:, 0]
     ce = lse - picked.float()
     total = torch.where(mask, ce, torch.zeros_like(ce)).sum()
-    count = mask.sum().clamp_min(1)
-    return total / count
+    count = mask.sum()
+    if group is not None:
+        (count,) = all_reduce_sum([count], group)
+    return total / count.clamp_min(1)
 
 
 def upsampled_ce_loss_plain(logits: torch.Tensor, labels: torch.Tensor,
-                            out_size: tuple[int, int], ignore_index: int = 255) -> torch.Tensor:
+                            out_size: tuple[int, int], ignore_index: int = 255,
+                            group=None) -> torch.Tensor:
     """The plain version of K2/K3: f32 align-corners resize, then CE."""
     up = resize_bilinear_align_corners(logits.float(), out_size)
-    return cross_entropy_ignore(up, labels, ignore_index)
+    return cross_entropy_ignore(up, labels, ignore_index, group)
 
 
 def upsampled_ce_loss_dsn_plain(logits: torch.Tensor, aux_logits: torch.Tensor,
                                 labels: torch.Tensor, out_size: tuple[int, int],
-                                ignore_index: int = 255, dsn_weight: float = 0.4) -> torch.Tensor:
+                                ignore_index: int = 255, dsn_weight: float = 0.4,
+                                group=None) -> torch.Tensor:
     """The plain version of K4/K5: CE(main↑) + dsn_weight·CE(aux↑)."""
-    return (upsampled_ce_loss_plain(logits, labels, out_size, ignore_index)
-            + dsn_weight * upsampled_ce_loss_plain(aux_logits, labels, out_size, ignore_index))
+    return (upsampled_ce_loss_plain(logits, labels, out_size, ignore_index, group)
+            + dsn_weight * upsampled_ce_loss_plain(aux_logits, labels, out_size, ignore_index,
+                                                   group))
 
 
 def _fwd_tiling(c_all: int, w_in: int, w_out: int) -> tuple[int, int]:
@@ -186,7 +200,7 @@ def _launch_fwd(heads: tuple, labels: torch.Tensor, out_size, ignore_index: int,
             int(ignore_index), float(dsn_weight), px, ncols, stream)
     if err != 0:
         raise RuntimeError(f"upsampled CE forward kernel launch failed: cudaError {err}")
-    return loss, count
+    return loss, sums, count
 
 
 def _launch_bwd(heads: tuple, labels: torch.Tensor, count: torch.Tensor, grad: torch.Tensor,
@@ -228,17 +242,32 @@ def _labels_i32(labels: torch.Tensor) -> torch.Tensor:
     return labels.to(torch.int32).contiguous()
 
 
+def _share_of_global(sums: torch.Tensor, count: torch.Tensor, nheads: int,
+                     dsn_weight: float, group):
+    """(loss, global count): the forward kernel's per-head sums over the
+    valid count of the whole batch, in the kernel's own f32 order
+    (ce_reduce_kernel: sum_main/c, then + w·(sum_aux/c), each rounded)."""
+    (count,) = all_reduce_sum([count], group)
+    denom = count.clamp_min(1).float()
+    loss = sums[0] / denom
+    if nheads == 2:
+        loss = loss + dsn_weight * (sums[1] / denom)
+    return loss.reshape(()), count
+
+
 class _UpsampledCE(torch.autograd.Function):
     """Forward and backward on the card; `counter` is the public wrapper whose
     `launches`/`bwd_launches` count the kernel launches."""
 
     @staticmethod
-    def forward(ctx, counter, out_size, ignore_index, dsn_weight, labels, *heads):
+    def forward(ctx, counter, out_size, ignore_index, dsn_weight, group, labels, *heads):
         labels = _labels_i32(labels)
         if any(ctx.needs_input_grad):  # a shape the backward cannot take raises here
             _bwd_tiling(len(heads) * heads[0].shape[1], heads[0].shape[3], out_size[1])
-        loss, count = _launch_fwd(heads, labels, out_size, ignore_index, dsn_weight)
+        loss, sums, count = _launch_fwd(heads, labels, out_size, ignore_index, dsn_weight)
         counter.launches += 1
+        if group is not None:
+            loss, count = _share_of_global(sums, count, len(heads), dsn_weight, group)
         ctx.save_for_backward(labels, count, *heads)
         ctx.meta = (counter, out_size, ignore_index, dsn_weight)
         return loss
@@ -250,26 +279,31 @@ class _UpsampledCE(torch.autograd.Function):
         dxs = _launch_bwd(tuple(heads), labels, count, grad, out_size, ignore_index,
                           dsn_weight)
         counter.bwd_launches += 1
-        return (None, None, None, None, None, *dxs)
+        return (None, None, None, None, None, None, *dxs)
 
 
 def upsampled_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
-                      out_size: tuple[int, int], ignore_index: int = 255) -> torch.Tensor:
-    """mean CE(resize_align_corners(logits, out_size), labels) with ignore.
+                      out_size: tuple[int, int], ignore_index: int = 255,
+                      group=None) -> torch.Tensor:
+    """mean CE(resize_align_corners(logits, out_size), labels) with ignore
+    (with a process group, this rank's share of the global batch's).
 
     logits (N, C, h, w) float32/bfloat16, labels (N, H, W) int. A CPU tensor
     takes `upsampled_ce_loss_plain`; a CUDA tensor launches K2 forward and K3
     backward, or raises."""
     out_size = _check((logits,), labels, out_size)
     if logits.device.type == "cpu":
-        return upsampled_ce_loss_plain(logits, labels, out_size, ignore_index)
-    return _UpsampledCE.apply(upsampled_ce_loss, out_size, ignore_index, 0.0, labels, logits)
+        return upsampled_ce_loss_plain(logits, labels, out_size, ignore_index, group)
+    return _UpsampledCE.apply(upsampled_ce_loss, out_size, ignore_index, 0.0, group, labels,
+                              logits)
 
 
 def upsampled_ce_loss_dsn(logits: torch.Tensor, aux_logits: torch.Tensor,
                           labels: torch.Tensor, out_size: tuple[int, int],
-                          ignore_index: int = 255, dsn_weight: float = 0.4) -> torch.Tensor:
-    """CE(main↑) + dsn_weight·CE(aux↑) in one pass over both heads.
+                          ignore_index: int = 255, dsn_weight: float = 0.4,
+                          group=None) -> torch.Tensor:
+    """CE(main↑) + dsn_weight·CE(aux↑) in one pass over both heads (with a
+    process group, this rank's share of the global batch's).
 
     The heads must agree in shape and dtype. A CPU tensor takes
     `upsampled_ce_loss_dsn_plain`; a CUDA tensor launches K4 forward and K5
@@ -277,9 +311,9 @@ def upsampled_ce_loss_dsn(logits: torch.Tensor, aux_logits: torch.Tensor,
     out_size = _check((logits, aux_logits), labels, out_size)
     if logits.device.type == "cpu":
         return upsampled_ce_loss_dsn_plain(logits, aux_logits, labels, out_size,
-                                           ignore_index, dsn_weight)
+                                           ignore_index, dsn_weight, group)
     return _UpsampledCE.apply(upsampled_ce_loss_dsn, out_size, ignore_index, dsn_weight,
-                              labels, logits, aux_logits)
+                              group, labels, logits, aux_logits)
 
 
 for _fn in (upsampled_ce_loss, upsampled_ce_loss_dsn):

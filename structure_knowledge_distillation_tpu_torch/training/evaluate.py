@@ -17,8 +17,9 @@ Counterpart of `structure_knowledge_distillation_tpu/training/evaluate.py`
   * the host helpers `predict_sliding` and `predict_multiscale` (numpy, the
     reference's shape of the computation);
   * `evaluate_sharded`: the whole-image sweep in groups of `batch` frames,
-    the tail group padded with masked slots; sharding the groups across
-    devices is ROADMAP Queue A item 8;
+    the tail group padded with masked slots; with a process group, each
+    rank runs its slots of every group (`data.EvalShard`) and the confusion
+    is all-reduced once at the end;
   * `evaluate_main`: every sweep, val (returns mIoU) or the label-less test
     sweep (palette PNGs of labelIds for the test server);
   * the u8 image wire (`input_mean`): frames cross as their original bytes
@@ -44,6 +45,10 @@ from structure_knowledge_distillation_tpu_torch.data.cityscapes import trainid2i
 from structure_knowledge_distillation_tpu_torch.data.prefetch import quantize_u8, to_nchw
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import upsampled_argmax
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
+    all_reduce_sum,
+    world_of,
+)
 
 __all__ = [
     "get_palette",
@@ -373,6 +378,7 @@ def evaluate_sharded(
     scales: Iterable[float] = (1.0,),
     flip: bool = False,
     device: Optional[torch.device | str] = None,
+    group=None,
 ):
     """Whole-image val sweep in groups of `batch` frames (no PNGs). Returns
     (mean_IU, IU_array, confusion) as `evaluate_main`.
@@ -383,10 +389,20 @@ def evaluate_sharded(
     runs `make_fast_val_batch_fn` (K1 once per group on the card),
     `scales`/`flip` run `make_msf_val_batch_fn`. `input_mean` selects the u8
     image wire. The int64 confusion stays on the device until the end.
-    Sharding the groups across devices (the JAX `sharding`) is ROADMAP
-    Queue A item 8."""
+
+    With a process `group` of `world` ranks (the JAX `sharding` over a
+    `data` mesh), `batch` is the group of frames over all ranks, a multiple
+    of `world`, and `loader` yields this rank's frames (`data.EvalShard`,
+    which pads the tail group's slots with h = w = 0 and decodes only the
+    rank's frames), batch/world a rank per group. The int64 confusion is
+    all-reduced once at the end, so every rank returns the same mIoU, equal
+    to the one-process sweep's."""
     scales = tuple(scales)
     device = torch.device(device) if device is not None else _model_device(model)
+    _, world = world_of(group)
+    if batch % world:
+        raise ValueError(f"a group of {batch} frames does not split over {world} ranks")
+    batch //= world
     if scales == (1.0,) and not flip:
         fn = make_fast_val_batch_fn(model, out_size, num_classes, ignore_label, input_mean)
     else:
@@ -422,6 +438,8 @@ def evaluate_sharded(
                     flush()
         if buf:
             flush()
+    if group is not None:
+        (conf,) = all_reduce_sum([conf], group)
     conf_np = conf.cpu().numpy()
     mean_iu, iu = iu_from_confusion(conf_np)
     return mean_iu, iu, conf_np

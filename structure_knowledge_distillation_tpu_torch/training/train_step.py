@@ -53,6 +53,28 @@ generator in the order the eager steps draw them, into one device buffer
 that the graph reads. A tail chunk (`n_valid < unroll`) runs its steps
 eagerly, and the loop counts eager and replayed steps. A capture or replay
 that fails raises; nothing falls back to the eager loop.
+
+Data parallel (`group`, a process group over the ranks; the JAX step jitted
+on a `data` mesh): each rank runs the step on its contiguous slice of the
+global batch, and together they compute the global-batch step.
+  * Every term enters the backward as the rank's share of its global value:
+    the task loss as the rank's sum over the global valid count (the losses'
+    `group`), Pi ×1 (a sum over the batch), Pa, the adversarial G and D
+    terms and the GP ×1/world (means over the batch). The student's and D's
+    ABNs sync their statistics (`ops/batch_norm.py::set_process_group`).
+  * `sgd_step` sums each gradient over the ranks, as one flat buffer
+    between `torch.autograd.grad` and `sgd_update`, once for G and once for
+    D; the ranks then take identical updates.
+  * The metrics are the all-reduced shares: the global values.
+  * Every uniform is drawn at the global batch's shape from the same seeded
+    generator on every rank, and the rank keeps its rows (`_RowShard`), so
+    the masks and α are the one-process ones; `_HostDraws` and the loop's
+    draw plan record the global shapes.
+  * On the card with NCCL the collectives are captured with the rest of the
+    chunk (after the eager warm-up chunk on every rank). Gloo collectives
+    cannot be captured: with a gloo group the loop runs every chunk eagerly,
+    by that rule, never by catching a failed capture.
+Without a group the step issues no collective.
 """
 
 from __future__ import annotations
@@ -64,6 +86,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from structure_knowledge_distillation_tpu_torch.data.cityscapes import IMG_MEAN_BGR
@@ -80,6 +103,11 @@ from structure_knowledge_distillation_tpu_torch.losses import (
 )
 from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
 from structure_knowledge_distillation_tpu_torch.ops.spectral import spectral_in_place
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
+    all_reduce_sum,
+    shard_rows,
+    world_of,
+)
 from structure_knowledge_distillation_tpu_torch.training.train_state import (
     KDTrainState,
     momentum_buffers,
@@ -141,6 +169,20 @@ class _BufferDraws:
         return out
 
 
+class _RowShard:
+    """The uniform source of one rank of `world`: each draw is made at the
+    global batch's shape (the leading axis times `world`) from `draws`, and
+    the rank keeps its rows, so the ranks' draws together are the
+    one-process draws."""
+
+    def __init__(self, draws: Callable, rank: int, world: int):
+        self.draws, self.rank, self.world = draws, rank, world
+
+    def __call__(self, shape) -> torch.Tensor:
+        full = self.draws((shape[0] * self.world, *shape[1:]))
+        return shard_rows(full, self.rank, self.world)
+
+
 def _lr_values(state: KDTrainState, n: int) -> List[float]:
     """The n G lrs, then the n D lrs, of the next n updates."""
     steps = range(state.step, state.step + n)
@@ -155,13 +197,20 @@ def _advance(state: KDTrainState, n: int) -> None:
     state.step += n
 
 
-def _make_body(cfg) -> Callable:
+def _make_body(cfg, group=None) -> Callable:
     """`run_steps(state, images_k, labels_k, n, draws, lr_g, lr_d, alpha_k)`:
     n train steps on images_k[i], labels_k[i] with lrs lr_g[i], lr_d[i]
     (device tensors) and uniforms from `draws`; returns the metrics stacked
-    to (n,). Spectral u/v go back into D's buffers at the end."""
+    to (n,). Spectral u/v go back into D's buffers at the end. With a
+    process group, the rank's part of the data-parallel step (see the
+    module's docstring)."""
     ohem = bool(getattr(cfg, "ohem", False))
     fused = _use_fused_ce(cfg)
+    rank, world = world_of(group)
+
+    def mean_share(t: torch.Tensor) -> torch.Tensor:
+        """The rank's share of a mean over the global batch."""
+        return t if group is None else t / world
 
     def g_loss_fn(student, disc, images, labels, logits_t, feat_t, draws):
         preds_s = student(images, draws)
@@ -173,11 +222,11 @@ def _make_body(cfg) -> Callable:
             feat_t = resize_bilinear_align_corners(feat_t, tuple(preds_s[2].shape[2:]))
         if ohem:
             mc = criterion_ohem_dsn(preds_s, labels, cfg.ignore_label, cfg.ohem_thresh,
-                                    cfg.ohem_min_kept)
+                                    cfg.ohem_min_kept, group=group)
         elif fused:
-            mc = criterion_dsn_fused(preds_s, labels, cfg.ignore_label)
+            mc = criterion_dsn_fused(preds_s, labels, cfg.ignore_label, group=group)
         else:
-            mc = criterion_dsn(preds_s, labels, cfg.ignore_label)
+            mc = criterion_dsn(preds_s, labels, cfg.ignore_label, group=group)
         loss = mc
         metrics = {"mc_loss": mc}
         if cfg.pi:
@@ -185,11 +234,11 @@ def _make_body(cfg) -> Callable:
             metrics["pi_loss"] = pi_l
             loss = loss + cfg.lambda_pi * pi_l
         if cfg.pa:
-            pa_l = pairwise_affinity_loss(preds_s[2], feat_t, cfg.pool_scale)
+            pa_l = mean_share(pairwise_affinity_loss(preds_s[2], feat_t, cfg.pool_scale))
             metrics["pa_loss"] = pa_l
             loss = loss + cfg.lambda_pa * pa_l
         if cfg.ho:
-            adv_g = adv_loss_for_g(disc(preds_s[0])[0], cfg.adv_loss_type)
+            adv_g = mean_share(adv_loss_for_g(disc(preds_s[0])[0], cfg.adv_loss_type))
             metrics["adv_g_loss"] = adv_g
             loss = loss + cfg.lambda_d * adv_g
         metrics["g_loss"] = loss
@@ -205,11 +254,14 @@ def _make_body(cfg) -> Callable:
             gp = gradient_penalty(lambda x: disc(x)[0], logits_t, logits_s, alpha,
                                   cfg.lambda_gp)
             d_loss = d_loss + cfg.lambda_d * gp
-        return d_loss
+        return mean_share(d_loss)
 
     def sgd_step(module, loss, opt, lr):
         params = [p for p in module.parameters() if p.requires_grad]
-        sgd_update(opt, params, torch.autograd.grad(loss, params), lr)
+        grads = torch.autograd.grad(loss, params)
+        if group is not None:
+            grads = all_reduce_sum(grads, group)
+        sgd_update(opt, params, grads, lr)
 
     # the u8 wire's mean, made once here and copied to a device at the first
     # eager step there: a captured chunk always follows an eager one on its
@@ -254,9 +306,13 @@ def _make_body(cfg) -> Callable:
             metrics["d_loss"] = d_loss
         else:
             metrics["d_loss"] = torch.zeros((), device=images.device)
+        if group is not None:
+            metrics = dict(zip(metrics, all_reduce_sum(list(metrics.values()), group)))
         return {k: v.detach() for k, v in metrics.items()}
 
     def run_steps(state, images_k, labels_k, n, draws, lr_g, lr_d, alpha_k=None) -> Metrics:
+        if group is not None:
+            draws = _RowShard(draws, rank, world)
         steps = []
         with spectral_in_place(state.discriminator):
             for i in range(n):
@@ -283,7 +339,7 @@ def _run_eager(run_steps, state, images_k, labels_k, n_valid, unroll, generator,
     return metrics
 
 
-def make_train_step(cfg) -> Callable:
+def make_train_step(cfg, group=None) -> Callable:
     """The train step for a TrainConfig: `train_step(state, images, labels,
     generator=None, alpha=None)` takes (N, 3, H, W) images (f32, bf16 from
     the narrowed wire, or uint8 from the u8 wire, which becomes f32 minus
@@ -291,8 +347,10 @@ def make_train_step(cfg) -> Callable:
     (N, H, W) integer labels (int32, or uint8 from the wire, widened to
     int32 on the device first, as the JAX step does) on the models' device,
     updates `state` in place and returns its metrics as 0-dim f32 tensors.
-    It is the multi-step loop's eager path with one step."""
-    run_steps = _make_body(cfg)
+    It is the multi-step loop's eager path with one step. With a process
+    `group`, the batch is this rank's slice of the global batch, and a fed
+    `alpha` holds this rank's rows of the global α."""
+    run_steps = _make_body(cfg, group)
 
     def train_step(state: KDTrainState, images: torch.Tensor, labels: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -334,16 +392,19 @@ class TrainLoop:
     and (unroll, N, H, W) labels on the models' device; advances `state.step`
     by n_valid and returns every metric stacked to (unroll,), zeros past
     n_valid. `alpha_k` (unroll, N, 1, 1, 1), the GP α fed instead of drawn,
-    is for CPU tensors only. See the module's docstring for the card's path.
+    is for CPU tensors only. See the module's docstring for the card's path
+    and for a process `group`: with gloo, chunks on the card run eagerly.
     Counters:
     `eager_steps`, `replayed_steps`, `replays`, `captures` and `capture_ms`
     (the last capture's host time)."""
 
-    def __init__(self, cfg, unroll: int):
+    def __init__(self, cfg, unroll: int, group=None):
         if unroll < 1:
             raise ValueError(f"unroll should be >= 1, got {unroll}")
         self.unroll = int(unroll)
-        self._run_steps = _make_body(cfg)
+        self._run_steps = _make_body(cfg, group)
+        # gloo collectives cannot be captured in a CUDA graph
+        self._eager_only = group is not None and dist.get_backend(group) == "gloo"
         self.stream: Optional[torch.cuda.Stream] = None
         self._graph: Optional[_Graph] = None
         self._plan: Optional[List[tuple]] = None  # uniform shapes a step draws
@@ -373,6 +434,10 @@ class TrainLoop:
         if images_k.device.type != "cuda":
             return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
                               generator, alpha_k)
+        if self._eager_only:
+            self.eager_steps += n_valid
+            return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
+                              generator)
         if alpha_k is not None:
             raise ValueError("a fed α is for CPU parity runs; on the card the loop draws α "
                              "from the generator")
@@ -477,6 +542,7 @@ class TrainLoop:
         g.graph = graph
 
 
-def make_train_loop(cfg, unroll: int) -> TrainLoop:
-    """The multi-step loop of `unroll` steps; see `TrainLoop`."""
-    return TrainLoop(cfg, unroll)
+def make_train_loop(cfg, unroll: int, group=None) -> TrainLoop:
+    """The multi-step loop of `unroll` steps (a rank's part of it with a
+    process `group`); see `TrainLoop`."""
+    return TrainLoop(cfg, unroll, group)

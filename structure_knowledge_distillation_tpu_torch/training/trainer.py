@@ -37,6 +37,25 @@ end, and SIGTERM is answered at the chunk boundary. `profile_dir` traces
 steps [first + 9, first + 9 + profile_steps) of the run with
 `torch.profiler` (CPU and, on the card, CUDA activities), starting and
 stopping at chunk boundaries, into a trace file in `profile_dir`.
+
+With `num_data_shards` N > 1 the trainer is one rank of N (the JAX trainer
+on a `data` mesh, trainer.py:116-145): it joins the process group (the
+launcher's, `parallel.launch`, or one formed from a launcher's environment,
+`parallel.join_group`), puts its models on `cuda:<rank>` (NCCL) or the CPU
+(gloo), syncs the ABNs of the student and of D's `preprocess_additional`
+over the group (the teacher runs in eval mode), and broadcasts rank 0's
+initial or resumed state (student and D parameters and buffers, spectral
+u/v included, the momentum buffers and the generator of the draws). Each
+rank trains on its slice of every global batch through the data-parallel
+step, and the in-training eval runs sharded (`evaluate_sharded` with the
+group; the val loader yields this rank's frames, `data.EvalShard`), as the
+JAX trainer's does (trainer.py:478-495). Rank 0 alone logs, writes the
+metrics and the checkpoints, with a barrier after each save; every rank
+resumes from the same file. A SIGTERM on any rank stops every rank at the
+same step (or chunk) boundary: the flag is all-reduced on the host at each
+boundary, and rank 0 writes the one `latest/` save. Checkpoints have the
+one-card format: a file from an N-rank run resumes a one-card run, and the
+other way round.
 """
 
 from __future__ import annotations
@@ -56,11 +75,24 @@ from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data.prefetch import Chunk, chunk_batches, to_nchw
 from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ESPNetC, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import set_process_group
+from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
+    any_rank,
+    broadcast_state,
+    host_barrier,
+    host_group,
+    join_group,
+    rank_device,
+    world_of,
+)
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as ckpt
 from structure_knowledge_distillation_tpu_torch.training.checkpoint import (
     load_reference_state_dict,
 )
-from structure_knowledge_distillation_tpu_torch.training.evaluate import evaluate_main
+from structure_knowledge_distillation_tpu_torch.training.evaluate import (
+    evaluate_main,
+    evaluate_sharded,
+)
 from structure_knowledge_distillation_tpu_torch.training.train_state import (
     KDTrainState,
     make_sgd,
@@ -104,14 +136,20 @@ class KDTrainer:
     warning; a missing student or discriminator keeps its seeded random
     init, drawn from `torch.Generator().manual_seed(cfg.seed)` (student
     first, then D). The same generator then draws the dropout masks and the
-    GP α of every step."""
+    GP α of every step. With `cfg.num_data_shards` > 1, one rank of the
+    data-parallel run (see the module's docstring); `group`, `rank` and
+    `world` say which."""
 
     def __init__(self, cfg: TrainConfig, teacher_state: Optional[Mapping] = None,
                  student_state: Optional[Mapping] = None, d_state: Optional[Mapping] = None):
         self.cfg = cfg
-        device = torch.device(cfg.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(cfg.device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device on this host; pass --device cpu")
+        self.group = join_group(cfg.num_data_shards, cfg.device)
+        self.rank, self.world = world_of(self.group)
+        # flags, barriers and the generator's state travel on the host
+        self.host_group = None if self.group is None else host_group(self.group)
+        device = rank_device(cfg.device, self.group)
         self.device = device
         dtype = _DTYPES[cfg.compute_dtype]
 
@@ -146,6 +184,9 @@ class KDTrainer:
             device=device, generator=self.generator)
         if d_state is not None:
             self.discriminator.load_state_dict(_as_tensors(d_state), strict=True)
+        if self.group is not None:
+            set_process_group(self.student, self.group)
+            set_process_group(self.discriminator, self.group)
 
         self.state = KDTrainState(
             teacher=self.teacher, student=self.student, discriminator=self.discriminator,
@@ -157,16 +198,41 @@ class KDTrainer:
             d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power),
             step=cfg.last_step,
         )
-        self.train_step = make_train_step(cfg)
+        self.train_step = make_train_step(cfg, self.group)
         self.unroll = cfg.unroll_steps
         # the chunk loop captures its CUDA graph lazily, at the first full
         # chunk of `fit` after the eager one, so never before a resume
-        self.train_loop = make_train_loop(cfg, self.unroll) if self.unroll > 1 else None
+        self.train_loop = (make_train_loop(cfg, self.unroll, self.group) if self.unroll > 1
+                           else None)
         # (step, {metric: float}) at every logged step
         self.history: list = []
         # the best val mean IU so far: the config's, raised by resume and eval
         self.best_mean_iu = cfg.best_mean_IU
         self._preempt_requested = False
+        self._broadcast_state()
+
+    # ------------------------------------------------------------- ranks
+    def _broadcast_state(self) -> None:
+        """Make every rank hold rank 0's train state: the student's and D's
+        parameters and buffers (spectral u/v among them), the momentum
+        buffers that exist, and the generator of the draws."""
+        if self.group is None:
+            return
+        tensors = []
+        for module in (self.student, self.discriminator):
+            tensors += list(module.parameters()) + list(module.buffers())
+        for opt in (self.state.g_opt, self.state.d_opt):
+            tensors += [s["momentum_buffer"] for s in opt.state.values()
+                        if s.get("momentum_buffer") is not None]
+        broadcast_state(tensors, self.group)
+        gen = self.generator.get_state()
+        broadcast_state([gen], self.host_group)
+        self.generator.set_state(gen)
+
+    def _saved(self) -> None:
+        """After rank 0's save: every rank waits until the file is whole."""
+        if self.group is not None:
+            host_barrier(self.host_group)
 
     # ------------------------------------------------------------------ train
     def fit(self, train_iter: Iterable, val_loader=None, eval_out_size=(1024, 2048)) -> float:
@@ -184,7 +250,7 @@ class KDTrainer:
         Rerun with `--S_resume true` and the same `snapshot_dir` to
         continue."""
         cfg = self.cfg
-        writer = MetricsWriter(cfg.log_path) if cfg.log_path else None
+        writer = MetricsWriter(cfg.log_path) if cfg.log_path and self.rank == 0 else None
         self._preempt_requested = False
         on_main = threading.current_thread() is threading.main_thread()
         prev = signal.signal(signal.SIGTERM, self._on_sigterm) if on_main else None
@@ -254,7 +320,7 @@ class KDTrainer:
         # resumed run still writes a trace
         profile_start = first_step + 9
         profile_end = profile_start + cfg.profile_steps  # exclusive
-        profile_dir, prof = cfg.profile_dir, None
+        profile_dir, prof = (cfg.profile_dir if self.rank == 0 else ""), None
         try:
             for start, n_valid, batch in self._groups(train_iter, first_step):
                 end = start + n_valid - 1
@@ -272,7 +338,7 @@ class KDTrainer:
                     profile_dir = ""  # one window per run, as in the JAX trainer
 
                 log_hits = [s for s in range(start, end + 1) if s % cfg.log_every == 0]
-                if log_hits:
+                if log_hits and self.rank == 0:
                     ms = {k: v[:n_valid].tolist() for k, v in metrics_k.items()}
                     dt = time.time() - t_last
                     ips = steps_since_log * cfg.batch_size / max(dt, 1e-9)
@@ -297,24 +363,33 @@ class KDTrainer:
                     step = eval_hits[-1]
                     loader = val_loader() if callable(val_loader) else val_loader
                     mean_iu, iu_array = self.evaluate(loader, eval_out_size)
-                    log.info("[val] step %d mean_IU: %.6f IU_array: %s", step, mean_iu,
-                             np.array2string(iu_array, precision=4))
-                    if writer is not None:
-                        writer.write(step, {"val_mean_iu": mean_iu})
                     is_best = mean_iu > self.best_mean_iu
                     self.best_mean_iu = max(self.best_mean_iu, mean_iu)
-                    self.save_checkpoint(step, mean_iu, is_best=is_best, state_step=end)
+                    if self.rank == 0:
+                        log.info("[val] step %d mean_IU: %.6f IU_array: %s", step, mean_iu,
+                                 np.array2string(iu_array, precision=4))
+                        if writer is not None:
+                            writer.write(step, {"val_mean_iu": mean_iu})
+                        self.save_checkpoint(step, mean_iu, is_best=is_best, state_step=end)
+                    self._saved()
 
-                if self._preempt_requested:
-                    path = ckpt.save_auto_resume(
-                        self._auto_resume_dir, self.full_state(end, self.best_mean_iu, end), end)
-                    log.info("preempted: full state saved at step %d to %s; rerun with "
-                             "--S_resume true and the same snapshot_dir to resume", end, path)
+                preempted = self._preempt_requested
+                if self.group is not None:
+                    preempted = any_rank(preempted, self.host_group)
+                if preempted:
+                    if self.rank == 0:
+                        path = ckpt.save_auto_resume(self._auto_resume_dir,
+                                                     self.full_state(end, self.best_mean_iu, end),
+                                                     end)
+                        log.info("preempted: full state saved at step %d to %s; rerun with "
+                                 "--S_resume true and the same snapshot_dir to resume", end,
+                                 path)
+                    self._saved()
                     break
         finally:
             if prof is not None:
                 prof.stop()
-        if self.train_loop is not None:
+        if self.train_loop is not None and self.rank == 0:
             lp = self.train_loop
             log.info("multi-step loop: %d steps in %d CUDA-graph replays (%d captures), "
                      "%d steps eager", lp.replayed_steps, lp.replays, lp.captures,
@@ -328,17 +403,26 @@ class KDTrainer:
         `wire_format` is f32, for Cityscapes and CamVid, whose unscaled,
         unpadded val frames are integer−mean (synthetic images are not, so
         they keep the f32 wire); `cfg.scales`/`cfg.flip` select the
-        multiscale+flip sweep."""
+        multiscale+flip sweep. With a process group the sweep is sharded:
+        `val_loader` yields this rank's frames (`data.EvalShard` over the
+        val set, one frame a rank per group), and the confusion is
+        all-reduced, so every rank returns the same mIoU."""
         cfg = self.cfg
         input_mean = None
         if cfg.wire_format != "f32" and cfg.data_set in ("cityscapes", "cityscape", "camvid"):
             input_mean = np.asarray(cfg.input_mean_bgr, np.float32)
         self.student.eval()
+        common = dict(out_size=tuple(out_size), scales=tuple(cfg.scales) or (1.0,),
+                      flip=bool(cfg.flip), ignore_label=cfg.ignore_label,
+                      input_mean=input_mean, device=self.device)
         try:
-            mean_iu, iu_array, _ = evaluate_main(
-                self.student, val_loader, cfg.classes_num, out_size=tuple(out_size),
-                scales=tuple(cfg.scales) or (1.0,), flip=bool(cfg.flip),
-                ignore_label=cfg.ignore_label, input_mean=input_mean, device=self.device)
+            if self.group is not None:
+                mean_iu, iu_array, _ = evaluate_sharded(
+                    self.student, val_loader, cfg.classes_num, batch=self.world,
+                    group=self.group, **common)
+            else:
+                mean_iu, iu_array, _ = evaluate_main(self.student, val_loader, cfg.classes_num,
+                                                     **common)
         finally:
             self.student.train()
         return mean_iu, iu_array
@@ -405,6 +489,7 @@ class KDTrainer:
             self.state.step = int(meta.get("state_step", meta.get("step")) or 0)
         best = float(meta.get("best_mean_IU", meta.get("mean_iu")) or 0.0)
         self.best_mean_iu = max(self.best_mean_iu, best)
+        self._broadcast_state()
         log.info("resumed from %s (step %d, best_mean_IU %.4f)", path, self.state.step, best)
         return self.state.step
 

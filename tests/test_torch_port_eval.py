@@ -165,8 +165,6 @@ def test_cli_eval_matches_jax(tmp_path, capsys):
 def test_cli_eval_refuses_what_is_not_ported(tmp_path):
     lst = _fake_cityscapes(str(tmp_path), n=1)
     base = ["--data-dir", str(tmp_path), "--data-list", lst, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        port_cli.main(base + ["--num-data-shards", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP 'Not ported'"):
         port_cli.main(base + ["--num-spatial-shards", "2"])
     with pytest.raises(ValueError, match=".pth"):

@@ -300,12 +300,16 @@ def test_cli_train_synthetic_unrolled(tmp_path):
     assert list((tmp_path / "snap").glob("CS_scenes_2_*.pth"))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num-data-shards", "2"], "item 8"),
-])
-def test_cli_train_unported_options_raise_naming_roadmap(flags, item):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--num-data-shards", "2"], ValueError, "not divisible"),
+    (["--num-model-shards", "2"], NotImplementedError, "ROADMAP 'Not ported'"),
+], ids=["data-shards-batch-1", "model-shards"])
+def test_cli_train_unported_options_raise_naming_roadmap(flags, error, match):
+    """`--num-data-shards 2` runs since data parallelism was ported
+    (tests/test_torch_port_ddp_cli.py), but not with a global batch of 1,
+    which does not split over two ranks; the model axis is not ported."""
     argv = SMALL + flags
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
+    with pytest.raises(error, match=match):
         port_cli.main(argv)
 
 

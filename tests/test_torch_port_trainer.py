@@ -17,7 +17,8 @@ the CPU.
   * the two-leg CLI run on a fake Cityscapes tree trains exactly the steps
     left (the JAX package's fe9b9d1 regression);
   * `TrainConfig` takes the options the port has ported (the multi-step
-    loop and the profiler among them) and still raises for the others.
+    loop and the profiler among them) and still raises for the others;
+    `num_data_shards=2` builds two ranks.
 
 The models are the full-width R18 student and SAGAN D with a one-block-per-
 stage teacher, at 256² crops (the smallest whose D geometry closes).
@@ -336,12 +337,30 @@ def test_config_accepts_the_ported_options(kw):
         assert getattr(cfg, k) == v
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(num_data_shards=2), "item 8"),
-    (dict(num_model_shards=2), "item 8"),
-    (dict(num_slices=2), "item 8"),
-    (dict(num_spatial_shards=2), "item 8"),
-])
-def test_config_still_raises_for_the_others(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
+@pytest.mark.parametrize("kw", [dict(num_model_shards=2), dict(num_slices=2),
+                                dict(num_spatial_shards=2)])
+def test_config_still_raises_for_the_others(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP 'Not ported'"):
         TrainConfig(**kw)
+
+
+def test_config_num_data_shards_builds_two_ranks(tmp_path):
+    """`num_data_shards=2` (which raised before data parallelism was ported):
+    two gloo ranks each build a `KDTrainer` on the CPU; the student's and
+    D's ABNs sync over the group, the teacher's (eval mode) do not, and the
+    ranks hold rank 0's state, generator included."""
+    import ddp_cases
+
+    from structure_knowledge_distillation_tpu_torch.parallel import launch
+
+    kw = dict(data_set="synthetic", batch_size=2, input_size=CROP, teacher_layers=(1, 1, 1, 1),
+              imsize_for_adv=33, device="cpu", num_data_shards=2,
+              snapshot_dir=str(tmp_path / "snap"))
+    ranks = launch(ddp_cases.rank_build, 2, kw, timeout=300)
+    assert [(r["rank"], r["world"], r["device"]) for r in ranks] == [(0, 2, "cpu"), (1, 2, "cpu")]
+    for r in ranks:
+        assert r["synced"] == {"teacher": [False], "student": [True], "discriminator": [True]}
+        np.testing.assert_array_equal(r["generator"], ranks[0]["generator"])
+        for part in ("student", "disc"):
+            for k, v in ranks[0][part].items():
+                np.testing.assert_array_equal(r[part][k], v, err_msg=f"{part}:{k}")

@@ -12,8 +12,9 @@ prefetch, checkpoints, SIGTERM and resume), the multi-step loop as
 CUDA-graph replays (`--unroll-steps`), the other inference modes
 (multiscale+flip, sliding tiles, batched groups, the u8 image wire, the
 test-set submission of `cli.test`), and the CamVid ESPNet-C distillation
-recipe with OHEM, `--remat` and the VOC CLIs, and data parallelism over
-processes. Each phase prints one line
+recipe with OHEM, `--remat` and the VOC CLIs, data parallelism over
+processes, and the inference export (the BN fold and a `torch.export`
+serving program). Each phase prints one line
 (phases 17 and 18 one a part) and any failure ends the run with a non-zero
 exit:
 
@@ -203,6 +204,29 @@ exit:
      whose mIoU must equal the one-card sweep's. On one card (c) prints one
      line saying it did not run. `python3 chip_smoke.py --only
      data_parallel` runs phases 1, 2 and 19 alone (the four-card run).
+ 20. export: phase 4's student (seeded weights, random running statistics)
+     and the inference export. (a) The fold on the card: the folded model's
+     (`ResPSPNet(fold_bn=True)`, `models/fold.py`) logits on a 1024×2048
+     frame within 1e-3 of max(max |logit|, 1) of the unfolded ones with TF32
+     off (cli.export's rule; the TF32 difference printed beside), its
+     evaluate_main mIoU over phase 4's frames within 1e-3 of the unfolded
+     model's, K1 launched once a frame and K6 never. (b) `cli.export.main`
+     on the card with --fold-bn and a classmap program at (1, 1024, 2048, 3),
+     in f32 and in bf16: each `.pt2` runs in a fresh `python3` in which
+     importing the port raises; the f32 program's class maps differ from
+     the folded K1 fast path's in at most 1e-3 of the pixels, the bf16
+     program's from the port's bf16 folded eager model through the same
+     resize and argmax likewise; the fast path's maps after the export equal
+     those before it and the resize cache holds real tensors; the export
+     seconds and `.pt2` bytes printed. (c) ms per frame in turns (3 turns, 4
+     frames a sweep, host clock, pinned copies): the unfolded, `bn_fused`
+     and folded fast paths and the f32 and bf16 programs, then one profiled
+     sweep of each (device busy ms a frame and busy share). (d) The R101
+     teacher's eval forward at batch 8, 512², bf16, no grad: unfolded,
+     `bn_fused` and folded, device ms in turns, and one profiled forward of
+     each (kernel ms, launches, the top kernels by time); the folded f32
+     logits within 1e-3 (relative, TF32 off) of the unfolded ones. Times print beside the
+     card's name and power limit. `--only export` runs phases 1, 2 and 20.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -242,6 +266,8 @@ import torch.nn.functional as F
 from PIL import Image
 
 from structure_knowledge_distillation_tpu_torch.cli import eval as eval_cli
+from structure_knowledge_distillation_tpu_torch.cli import export as export_cli
+from structure_knowledge_distillation_tpu_torch.cli.export import no_tf32
 from structure_knowledge_distillation_tpu_torch.cli import test as test_cli
 from structure_knowledge_distillation_tpu_torch.cli import train as train_cli
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
@@ -266,6 +292,7 @@ from structure_knowledge_distillation_tpu_torch.models import (
     Discriminator,
     ESPNetC,
     ResPSPNet,
+    fold_bn_state_dict,
     student_model,
     teacher_model,
 )
@@ -289,7 +316,10 @@ from structure_knowledge_distillation_tpu_torch.ops.fused_bn import (
     bn_grad_sums,
     bn_grad_sums_plain,
 )
-from structure_knowledge_distillation_tpu_torch.ops.resize import resize_bilinear_align_corners
+from structure_knowledge_distillation_tpu_torch.ops.resize import (
+    interp_matrix_align_corners,
+    resize_bilinear_align_corners,
+)
 from structure_knowledge_distillation_tpu_torch.ops.taps import tap_tables
 from structure_knowledge_distillation_tpu_torch.ops.upsampled_argmax import (
     upsampled_argmax,
@@ -2949,17 +2979,6 @@ def _dp_chunks(device: torch.device) -> list:
     return _device_chunks(_train_config(), 3, device, seed=6)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """f32 convolutions and matmuls in full f32 (phase 9's setting)."""
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _worst_updates(start: dict, ref: dict, got: dict, n: int = 6) -> list:
     """The n tensors whose change over a step differs most, relative L2."""
     out = []
@@ -2988,7 +3007,7 @@ def _dp_gloo_rank(group) -> dict:
     step = make_train_step(cfg, group)
     images, labels = _rank_rows(_dp_chunks(device)[:1], rank, world)[0]
     zero_counts()
-    with _no_tf32():
+    with no_tf32():
         metrics = {k: float(v) for k, v in
                    step(state, images[0].float(), labels[0], gen).items()}
     torch.cuda.synchronize(device)
@@ -3010,7 +3029,7 @@ def _dp_gloo(device: torch.device, chunks: list) -> dict:
         momentum_buffers(opt, [p for p in module.parameters() if p.requires_grad])
     start = _state_flat(state)
     step = make_train_step(cfg)
-    with _no_tf32():
+    with no_tf32():
         ref = [{k: float(v) for k, v in
                 step(state, chunks[0][0][0].float(), chunks[0][1][0], gen).items()}]
     ref_state = _state_flat(state)
@@ -3047,7 +3066,7 @@ def _dp_nccl_rank(group) -> dict:
     rank, world = world_of(group)
     device = torch.device("cuda", rank)
     full = _dp_chunks(device)
-    with _no_tf32():
+    with no_tf32():
         small = _dp_loop_run(group, device, _rank_rows(_dp_f32_steps(full), rank, world),
                              unroll=1, dtype=torch.float32)
     # the states travel from rank 0 only; every rank sends a digest
@@ -3152,7 +3171,7 @@ def phase_data_parallel(device: torch.device, card: str) -> dict:
                              timeout=60)
         topo = run.stdout + run.stderr
         print("phase 19 data_parallel (c): nvidia-smi topo -m\n" + topo, flush=True)
-        with _no_tf32():
+        with no_tf32():
             ref = _dp_loop_run(None, device, _dp_f32_steps(chunks), unroll=1,
                                dtype=torch.float32)
         multi = _dp_multi(n, device, ref)
@@ -3167,21 +3186,298 @@ def phase_data_parallel(device: torch.device, card: str) -> dict:
     return {"world1": world1, "gloo": gloo, "multi": multi}
 
 
+# ------------------------------------------------------------- phase 20: export
+EX_TURNS = 3
+EX_FOLD_REL = 1e-3  # cli.export's fold parity rule
+EX_TEACHER_BATCH = 8
+EX_TEACHER_CROP = (512, 512)
+EX_TEACHER_REPS = 5
+EX_PROGRAM_CODE = """
+import sys
+for name in ("structure_knowledge_distillation_tpu_torch", "structure_knowledge_distillation_tpu",
+             "jax", "flax"):
+    sys.modules[name] = None
+try:
+    import structure_knowledge_distillation_tpu_torch
+    sys.exit("the port imported")
+except ImportError:
+    pass
+import time
+import numpy as np
+import torch
+frames = np.load(sys.argv[1])
+out = {}
+for path in sys.argv[3:]:
+    t0 = time.perf_counter()
+    prog = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        maps = [prog(torch.from_numpy(f[None]).cuda()).cpu().numpy()[0] for f in frames]
+    out[path] = np.stack(maps)
+    print(path, "load_seconds", load_s, flush=True)
+np.savez(sys.argv[2], *[out[p] for p in sys.argv[3:]])
+"""
+
+
+def _folded_copy(model: ResPSPNet, **kw) -> ResPSPNet:
+    """`ResPSPNet(fold_bn=True)` (or with `kw`) of `model`'s block and
+    layers on its device, holding `model`'s weights with its ABNs folded."""
+    layers = tuple(len(getattr(model, f"layer{i}")) for i in range(1, 5))
+    device = next(model.parameters()).device
+    folded = ResPSPNet(model.block, layers, NUM_CLASSES, device=device, fold_bn=True, **kw)
+    folded.load_state_dict(fold_bn_state_dict(model.state_dict()), strict=True)
+    return folded.eval()
+
+
+def _pinned_frames(frames: list) -> list:
+    """Each eval frame as pinned host tensors: the f32 NHWC image, the same
+    image raw (mean added back, the serving program's input) and the label."""
+    mean = np.asarray(IMG_MEAN_BGR, np.float32)
+    return [(torch.from_numpy(image).pin_memory(),
+             torch.from_numpy(image + mean).pin_memory(),
+             torch.from_numpy(label[0].astype(np.uint8)).pin_memory())
+            for image, label, _, _ in frames]
+
+
+def _eval_variants(models: dict, programs: dict, pinned: list, device) -> dict:
+    """ms per frame of each fast path (`make_fast_val_fn`: forward, K1,
+    mask, confusion) and each serving program (forward, resize, argmax),
+    host clock around a sweep of the frames synchronised once at its end,
+    every frame crossing by a pinned non-blocking copy; EX_TURNS turns, the
+    variants in turn within each."""
+    h, w = FULL_RES
+
+    def fast(fn):
+        def sweep():
+            for image, _, label in pinned:
+                x = to_nchw(image.to(device, non_blocking=True))
+                fn(x, label.to(device, non_blocking=True), h, w)
+        return sweep
+
+    def serve(prog):
+        def sweep():
+            for _, raw, _ in pinned:
+                prog(raw.to(device, non_blocking=True))
+        return sweep
+
+    sweeps = {**{k: fast(make_fast_val_fn(m, FULL_RES, NUM_CLASSES)) for k, m in models.items()},
+              **{k: serve(p) for k, p in programs.items()}}
+    times = {k: [] for k in sweeps}
+    with torch.no_grad():
+        for sweep in sweeps.values():  # warm-up (cuDNN's choices)
+            sweep()
+        for _ in range(EX_TURNS):
+            for k, sweep in sweeps.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sweep()
+                torch.cuda.synchronize()
+                times[k].append(1e3 * (time.perf_counter() - t0) / len(pinned))
+        profiled = {k: _profiled_chunk(sweep) for k, sweep in sweeps.items()}
+    n = len(pinned)
+    return {k: {"ms_per_frame": statistics.median(v), "turns": v,
+                "profiled_ms_per_frame": profiled[k]["wall_ms"] / n,
+                "device_busy_ms_per_frame": profiled[k]["device_busy_ms"] / n,
+                "busy_share": profiled[k]["busy_share"]} for k, v in times.items()}
+
+
+def _kernel_table(fn, top: int = 8) -> dict:
+    """One `fn()` under torch.profiler: the device's kernel ms in all and
+    the `top` kernel names by summed device time (ms, launches)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, launches = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+            launches[e.name] += 1
+    return {"kernel_ms": sum(ms.values()), "launches": sum(launches.values()),
+            "top": [{"name": k[:90], "ms": v, "launches": launches[k]}
+                    for k, v in ms.most_common(top)]}
+
+
+def _export_fold_on_card(device) -> tuple:
+    """(a): the folded student against the unfolded one at 1024×2048."""
+    plain = _eval_student(device)
+    folded = _folded_copy(plain)
+    frames = _eval_frames()
+    x = to_nchw(torch.from_numpy(frames[0][0]).to(device))
+    with torch.no_grad():
+        with no_tf32():
+            rel = export_cli.rel_logit_diff(plain(x)[0], folded(x)[0])
+        rel_tf32 = export_cli.rel_logit_diff(plain(x)[0], folded(x)[0])
+    check(rel <= EX_FOLD_REL, f"folded logits differ by {rel} (relative, TF32 off)")
+    miou, conf, took, counts = _timed_eval(folded, frames, device)
+    miou_plain, _, _ = evaluate_main(plain, frames, NUM_CLASSES, out_size=FULL_RES, device=device)
+    check(counts["K1"] == FRAMES, f"the folded sweep launched K1 {counts['K1']} times")
+    check(counts["K6"] == 0, f"the folded sweep launched K6 {counts['K6']} times")
+    check(int(conf.sum()) == sum(int((b[1] != 255).sum()) for b in frames),
+          "folded confusion count is off")
+    check(abs(miou - miou_plain) <= EVAL_MIOU_ATOL, f"folded mIoU {miou} vs unfolded {miou_plain}")
+    fold = {"logits_rel_diff": rel, "logits_rel_diff_tf32": rel_tf32, "rel_tol": EX_FOLD_REL,
+            "miou": miou, "miou_unfolded": miou_plain, "sweep_ms_per_frame": 1e3 * took / FRAMES,
+            "launches": {"K1": counts["K1"], "K6": counts["K6"]}}
+    return plain, folded, frames, fold
+
+
+def _export_programs(device, plain, work: str) -> dict:
+    """(b): `cli.export.main` on the card, --fold-bn, f32 and bf16 classmap
+    programs at (1, 1024, 2048, 3)."""
+    pth = os.path.join(work, "student.pth")
+    torch.save({k: v.cpu() for k, v in plain.state_dict().items()}, pth)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint", pth, "--output", os.path.join(work, dt), "--fold-bn",
+                         "--device", "cuda", "--program-output", os.path.join(work, f"{dt}.pt2"),
+                         "--program-size", "%d,%d" % FULL_RES, "--program-dtype", dt])
+        with open(os.path.join(work, dt + ".json")) as f:
+            meta = json.load(f)
+        check(meta["fold_max_logit_diff"] <= EX_FOLD_REL, f"cli.export parity {meta}")
+        check(meta["program"]["input"] == [1, *FULL_RES, 3], f"program input {meta['program']}")
+        out[dt] = {"cli_seconds": time.perf_counter() - t0,
+                   "export_seconds": meta["program"]["seconds"],
+                   "bytes": meta["program"]["bytes"], "path": meta["program"]["path"],
+                   "fold_max_logit_diff": meta["fold_max_logit_diff"]}
+    return out
+
+
+def _fresh_process_maps(frames: list, paths: list, work: str) -> tuple:
+    """Run the programs in a fresh `python3` in which importing the port
+    raises (cwd a scratch directory, the package names blocked): their class
+    maps over the raw frames, and the load seconds it printed."""
+    mean = np.asarray(IMG_MEAN_BGR, np.float32)
+    raw = np.concatenate([image + mean for image, _, _, _ in frames])
+    np.save(os.path.join(work, "raw.npy"), raw)
+    maps = os.path.join(work, "maps.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EX_PROGRAM_CODE, os.path.join(work, "raw.npy"),
+                           maps, *paths], cwd=work, capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the fresh process failed: {proc.stdout}\n{proc.stderr}")
+    loaded = np.load(maps)
+    return ([torch.from_numpy(loaded[f"arr_{i}"]) for i in range(len(paths))],
+            proc.stdout.strip().splitlines(), took)
+
+
+def _mismatch(a: list, b: list) -> float:
+    return float(sum(int((x != y).sum()) for x, y in zip(a, b)) / sum(x.numel() for x in a))
+
+
+def _teacher_fold(device) -> dict:
+    """(d): the R101 teacher's eval forward at batch 8, 512², bf16, no grad:
+    unfolded, bn_fused and folded, device ms in turns; the folded f32
+    logits against the unfolded ones with TF32 off."""
+    plain = teacher_model(NUM_CLASSES, device=device, generator=torch.Generator().manual_seed(2))
+    randomize_bn_stats(plain, 3)
+    plain.eval()
+    x = torch.randn((EX_TEACHER_BATCH, 3, *EX_TEACHER_CROP),
+                    generator=torch.Generator().manual_seed(9)).mul_(60.0).to(device)
+    with torch.no_grad():
+        folded32 = _folded_copy(plain)
+        with no_tf32():
+            rel = export_cli.rel_logit_diff(plain(x)[0], folded32(x)[0])
+        del folded32
+        check(rel <= EX_FOLD_REL, f"folded teacher logits differ by {rel} (relative, TF32 off)")
+        layers = (3, 4, 23, 3)
+        variants = {}
+        for name, kw in (("unfolded", {}), ("bn_fused", {"bn_fused": True})):
+            m = ResPSPNet(BOTTLENECK, layers, NUM_CLASSES, device=device, dtype=torch.bfloat16, **kw)
+            m.load_state_dict(plain.state_dict())
+            variants[name] = m.eval()
+        variants["folded"] = _folded_copy(plain, dtype=torch.bfloat16)
+        rel_bf16 = export_cli.rel_logit_diff(variants["unfolded"](x)[0], variants["folded"](x)[0])
+        times = {k: [] for k in variants}
+        for _ in range(EX_TURNS):
+            for k, m in variants.items():
+                times[k].append(cuda_median_ms(lambda m=m: m(x), reps=EX_TEACHER_REPS, trials=1))
+        kernels = {k: _kernel_table(lambda m=m: m(x)) for k, m in variants.items()}
+        zero_counts()
+        variants["folded"](x)
+        counts = read_counts()
+    check(counts["K6"] == 0, f"the folded teacher launched K6 {counts['K6']} times")
+    del variants, plain
+    torch.cuda.empty_cache()
+    return {"batch": EX_TEACHER_BATCH, "crop": list(EX_TEACHER_CROP), "dtype": "bfloat16",
+            "logits_rel_diff_f32": rel, "logits_rel_diff_bf16": rel_bf16,
+            **{f"{k}_ms": {"median": statistics.median(v), "turns": v} for k, v in times.items()},
+            "profiled": kernels}
+
+
+def phase_export(device: torch.device, card: str) -> dict:
+    """Phase 20: the inference export (`models/fold.py`, `cli/export.py`)."""
+    t0 = time.perf_counter()
+    plain, folded, frames, fold = _export_fold_on_card(device)
+    maps_before, _ = _class_maps(make_fast_val_fn(folded, FULL_RES, NUM_CLASSES), frames, device)
+    with tempfile.TemporaryDirectory(prefix="skd_export_") as work:
+        programs = _export_programs(device, plain, work)
+        # the trace left the eager path alone: same maps, real cached operators
+        maps_after, _ = _class_maps(make_fast_val_fn(folded, FULL_RES, NUM_CLASSES), frames,
+                                    device)
+        check(all(torch.equal(a, b) for a, b in zip(maps_before, maps_after)),
+              "the folded fast path changed after the export")
+        for n_in, n_out in ((129, 1024), (257, 2048), (6, 129)):
+            t = interp_matrix_align_corners(n_in, n_out, device)
+            check(type(t) is torch.Tensor, f"a {type(t).__name__} in the resize cache")
+        paths = [programs[dt]["path"] for dt in ("float32", "bfloat16")]
+        (maps32, maps16), load_lines, fresh_s = _fresh_process_maps(frames, paths, work)
+        loaded = {dt: torch.export.load(programs[dt]["path"]).module()
+                  for dt in ("float32", "bfloat16")}
+        plain_maps, _ = _class_maps(make_fast_val_fn(plain, FULL_RES, NUM_CLASSES), frames, device)
+        vs_fast = _mismatch(maps32, maps_before)
+        vs_unfolded = _mismatch(maps32, plain_maps)
+        check(vs_fast <= MISMATCH_SHARE_MAX, f"f32 program vs K1 fast path: {vs_fast} of pixels")
+        bf16 = _folded_copy(plain, dtype=torch.bfloat16)
+        mean = torch.tensor(IMG_MEAN_BGR, dtype=torch.float32, device=device)
+        want16 = []
+        with torch.no_grad():
+            for image, _, _, _ in frames:
+                raw = torch.from_numpy(image).to(device) + mean
+                logits = bf16(to_nchw(raw - mean))[0].float()
+                up = resize_bilinear_align_corners(logits, FULL_RES)
+                want16.append(up.argmax(1)[0].to(torch.uint8).cpu())
+        vs_eager16 = _mismatch(maps16, want16)
+        check(vs_eager16 <= MISMATCH_SHARE_MAX, f"bf16 program vs bf16 eager: {vs_eager16}")
+        fused = ResPSPNet(BASIC, (2, 2, 2, 2), NUM_CLASSES, device=device, bn_fused=True)
+        fused.load_state_dict(plain.state_dict())
+        models = {"unfolded_fast": plain, "bn_fused_fast": fused.eval(), "folded_fast": folded}
+        timing = _eval_variants(models, {"program_f32": loaded["float32"],
+                                         "program_bf16": loaded["bfloat16"]},
+                                _pinned_frames(frames), device)
+        del loaded, bf16, fused
+    teacher = _teacher_fold(device)
+    phase(20, "export", card=card, seconds=time.perf_counter() - t0,
+          model=f"student R18 full width, f32 unless named; teacher R101 bf16 batch "
+                f"{EX_TEACHER_BATCH} at {EX_TEACHER_CROP[0]}x{EX_TEACHER_CROP[1]}",
+          fold=fold, programs={**programs, "fresh_process_seconds": fresh_s,
+                               "fresh_process_load": load_lines,
+                               "f32_vs_k1_fast_path_mismatch": vs_fast,
+                               "f32_vs_unfolded_fast_path_mismatch": vs_unfolded,
+                               "bf16_vs_bf16_eager_mismatch": vs_eager16,
+                               "mismatch_max": MISMATCH_SHARE_MAX},
+          eval_ms=timing, teacher=teacher)
+    return {"launches": fold["launches"], "eval_ms": timing, "teacher": teacher}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     card = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
-    if argv == ["--only", "data_parallel"]:
-        # phase 19 alone, for a run on several cards
-        phase_data_parallel(device, card)
+    only = {"data_parallel": phase_data_parallel, "export": phase_export}
+    if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
+        # one phase alone: phase 19 for a run on several cards, phase 20 to try it
+        only[argv[1]](device, card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}),
               flush=True)
         return 0
-    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel")
+    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel|export")
     k1 = phase_kernel(device)
     eval_stats = phase_slice(device)
     phase_gpu_vs_cpu(device)
@@ -3200,6 +3496,7 @@ def main(argv=None) -> int:
     camvid = phase_camvid_espnet(device, card)
     clis = camvid["clis"]
     dp = phase_data_parallel(device, card)
+    export = phase_export(device, card)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
@@ -3221,6 +3518,8 @@ def main(argv=None) -> int:
         # CLI and the VOC eval at (1,21,64,64)->(505,505)
         "camvid_voc_launches": {"cli_train_camvid": clis["cli_train_camvid"]["launches"]["K1"],
                                 "cli_eval_voc": clis["cli_eval_voc"]["launches"]["K1"]},
+        # phase 20: the folded student's sweep (ResPSPNet(fold_bn=True)), once a frame
+        "folded_eval_launches": export["launches"]["K1"],
     }]
     ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
     pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"

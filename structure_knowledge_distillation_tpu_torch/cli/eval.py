@@ -79,6 +79,16 @@ def build_student(arch: str, num_classes: int, device: torch.device) -> torch.nn
     return student_model(num_classes, device=device, generator=gen)
 
 
+def check_device_and_checkpoint(device: torch.device, path: str) -> None:
+    """Raise for a CUDA device on a host without CUDA and for a JAX
+    `.msgpack` checkpoint (the port reads `.pth` files only)."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device on this host; pass --device cpu")
+    if path.endswith(".msgpack"):
+        raise ValueError("the port reads .pth checkpoints only; convert a JAX "
+                         ".msgpack with export_torch_respspnet and torch.save")
+
+
 def load_student(num_classes: int, device: torch.device, resume_from: str,
                  arch: str = "resnet18") -> torch.nn.Module:
     """The student in eval mode on `device`: seeded random weights (seed 0),
@@ -86,11 +96,7 @@ def load_student(num_classes: int, device: torch.device, resume_from: str,
     student (merged by intersection, as the JAX importer does), the port's
     own names for ESPNet-C (loaded strictly). A CUDA device without CUDA
     and a JAX `.msgpack` raise."""
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device on this host; pass --device cpu")
-    if resume_from.endswith(".msgpack"):
-        raise ValueError("the port reads .pth checkpoints only; convert a JAX "
-                         ".msgpack with export_torch_respspnet and torch.save")
+    check_device_and_checkpoint(device, resume_from)
     model = build_student(arch, num_classes, device)
     if resume_from:
         sd = ckpt_io.load_torch_state_dict(resume_from)

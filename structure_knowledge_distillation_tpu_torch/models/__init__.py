@@ -1,4 +1,5 @@
 from structure_knowledge_distillation_tpu_torch.models.espnet import ESPNetC
+from structure_knowledge_distillation_tpu_torch.models.fold import abn_conv_pairs, fold_bn_state_dict
 from structure_knowledge_distillation_tpu_torch.models.resnet_pspnet import (
     BASIC,
     BOTTLENECK,
@@ -21,6 +22,8 @@ __all__ = [
     "PSPModule",
     "ResPSPNet",
     "SelfAttention",
+    "abn_conv_pairs",
+    "fold_bn_state_dict",
     "student_model",
     "teacher_model",
 ]

@@ -15,6 +15,10 @@ its state-dict keys are the reference's torch keys:
   * the forward contract is the 7-tuple
     (logits, dsn_logits, feat_after_psp, x4, x3, x2, x1).
 
+`fold_bn=True` is the JAX model's folded form, for inference: every ABN is
+its bare activation and every conv it followed has a bias, which holds the
+eval-mode ABN folded in ahead of time (`models/fold.py`).
+
 Train mode runs ABN on batch statistics and the two channel dropouts at
 `drop_rate` (0.0 turns them off, as parity tests do: masks cannot be shared
 across frameworks). `dtype` is the compute dtype of the convolutions, as in
@@ -108,6 +112,20 @@ class Dropout2d(nn.Module):
         return f"rate={self.rate}"
 
 
+def _abn(features: int, activation: str = "none", device: Device = None,
+         fused: bool = False, fold_bn: bool = False) -> nn.Module:
+    """An ABN, or with `fold_bn` its bare activation, with no parameters or
+    buffers (the JAX `_bn_factory`): identity for "none", leaky_relu(0.01)
+    for "leaky_relu". `fold_bn` overrides `fused`."""
+    if not fold_bn:
+        return ABN(features, activation=activation, device=device, fused=fused)
+    if activation == "leaky_relu":
+        return nn.LeakyReLU(0.01)
+    if activation != "none":
+        raise ValueError(f"no folded form for activation {activation!r}")
+    return nn.Identity()
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
           bias: bool = False, device: Device = None, dtype: DType = None) -> Conv2d:
     return Conv2d(cin, cout, kernel, stride=stride,
@@ -122,15 +140,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None, dtype: DType = None, bn_fused: bool = False):
+                 device: Device = None, dtype: DType = None, bn_fused: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device=device, dtype=dtype)
-        self.bn1 = ABN(planes, device=device, fused=bn_fused)
-        self.conv2 = _conv(planes, planes, 3, 1, dilation, device=device, dtype=dtype)
-        self.bn2 = ABN(planes, device=device, fused=bn_fused)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, device=device,
-                                               dtype=dtype),
-                                         ABN(planes, device=device, fused=bn_fused))
+        conv = lambda *a: _conv(*a, bias=fold_bn, device=device, dtype=dtype)  # noqa: E731
+        bn = lambda c: _abn(c, device=device, fused=bn_fused, fold_bn=fold_bn)  # noqa: E731
+        self.conv1 = conv(inplanes, planes, 3, stride, dilation)
+        self.bn1 = bn(planes)
+        self.conv2 = conv(planes, planes, 3, 1, dilation)
+        self.bn2 = bn(planes)
+        self.downsample = (nn.Sequential(conv(inplanes, planes, 1, stride), bn(planes))
                            if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,17 +166,18 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 device: Device = None, dtype: DType = None, bn_fused: bool = False):
+                 device: Device = None, dtype: DType = None, bn_fused: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
-        self.bn1 = ABN(planes, device=device, fused=bn_fused)
-        self.conv2 = _conv(planes, planes, 3, stride, dilation, device=device, dtype=dtype)
-        self.bn2 = ABN(planes, device=device, fused=bn_fused)
-        self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
-        self.bn3 = ABN(planes * 4, device=device, fused=bn_fused)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes * 4, 1, stride, device=device,
-                                               dtype=dtype),
-                                         ABN(planes * 4, device=device, fused=bn_fused))
+        conv = lambda *a: _conv(*a, bias=fold_bn, device=device, dtype=dtype)  # noqa: E731
+        bn = lambda c: _abn(c, device=device, fused=bn_fused, fold_bn=fold_bn)  # noqa: E731
+        self.conv1 = conv(inplanes, planes, 1)
+        self.bn1 = bn(planes)
+        self.conv2 = conv(planes, planes, 3, stride, dilation)
+        self.bn2 = bn(planes)
+        self.conv3 = conv(planes, planes * 4, 1)
+        self.bn3 = bn(planes * 4)
+        self.downsample = (nn.Sequential(conv(inplanes, planes * 4, 1, stride), bn(planes * 4))
                            if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -178,19 +198,18 @@ class PSPModule(nn.Module):
 
     def __init__(self, in_features: int, out_features: int = 512,
                  sizes: Sequence[int] = (1, 2, 3, 6), device: Device = None,
-                 dtype: DType = None, drop_rate: float = DROP_RATE, bn_fused: bool = False):
+                 dtype: DType = None, drop_rate: float = DROP_RATE, bn_fused: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
+        conv = lambda *a: _conv(*a, bias=fold_bn, device=device, dtype=dtype)  # noqa: E731
+        bn = lambda: _abn(out_features, "leaky_relu", device, bn_fused, fold_bn)  # noqa: E731
         self.stages = nn.ModuleList([
-            nn.Sequential(nn.AdaptiveAvgPool2d((s, s)),
-                          _conv(in_features, out_features, 1, device=device, dtype=dtype),
-                          ABN(out_features, activation="leaky_relu", device=device,
-                              fused=bn_fused))
+            nn.Sequential(nn.AdaptiveAvgPool2d((s, s)), conv(in_features, out_features, 1), bn())
             for s in sizes
         ])
         self.bottleneck = nn.Sequential(
-            _conv(in_features + len(sizes) * out_features, out_features, 3, device=device,
-                  dtype=dtype),
-            ABN(out_features, activation="leaky_relu", device=device, fused=bn_fused),
+            conv(in_features + len(sizes) * out_features, out_features, 3),
+            bn(),
             Dropout2d(drop_rate),
         )
 
@@ -219,13 +238,17 @@ class ResPSPNet(nn.Module):
     block's forward instead of keeping its activations, and the recompute
     leaves the running statistics alone (`running_stats_frozen`), so they
     move once per step, as JAX's functional batch_stats do. Neither option
-    changes the state-dict keys.
+    changes the state-dict keys. `fold_bn` (eval only, the JAX model's
+    `fold_bn`) makes every ABN its bare activation and gives each conv it
+    followed a bias: the keys are then those that
+    `models.fold.fold_bn_state_dict` returns. It overrides `bn_fused`.
     """
 
     def __init__(self, block: str = BOTTLENECK, layers: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 19, width_mult: float = 1.0, device: Device = None,
                  generator: Optional[torch.Generator] = None, dtype: DType = None,
-                 drop_rate: float = DROP_RATE, bn_fused: bool = False, remat: bool = False):
+                 drop_rate: float = DROP_RATE, bn_fused: bool = False, remat: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
         if block not in (BASIC, BOTTLENECK):
             raise ValueError(f"unknown block {block!r}")
@@ -236,12 +259,14 @@ class ResPSPNet(nn.Module):
         expansion = block_cls.expansion
         wm = lambda c: max(1, int(round(c * width_mult)))  # noqa: E731
 
-        self.conv1 = _conv(3, wm(64), 3, 2, device=device, dtype=dtype)
-        self.bn1 = ABN(wm(64), device=device, fused=bn_fused)
-        self.conv2 = _conv(wm(64), wm(64), 3, device=device, dtype=dtype)
-        self.bn2 = ABN(wm(64), device=device, fused=bn_fused)
-        self.conv3 = _conv(wm(64), wm(128), 3, device=device, dtype=dtype)
-        self.bn3 = ABN(wm(128), device=device, fused=bn_fused)
+        conv = lambda *a: _conv(*a, bias=fold_bn, device=device, dtype=dtype)  # noqa: E731
+        bn = lambda c, act="none": _abn(c, act, device, bn_fused, fold_bn)  # noqa: E731
+        self.conv1 = conv(3, wm(64), 3, 2)
+        self.bn1 = bn(wm(64))
+        self.conv2 = conv(wm(64), wm(64), 3)
+        self.bn2 = bn(wm(64))
+        self.conv3 = conv(wm(64), wm(128), 3)
+        self.bn3 = bn(wm(128))
 
         inplanes = wm(128)
         plan = [(wm(64), 1, 1), (wm(128), 2, 1), (wm(256), 1, 2), (wm(512), 1, 4)]
@@ -251,7 +276,7 @@ class ResPSPNet(nn.Module):
                 has_down = bi == 0 and (stride != 1 or inplanes != planes * expansion)
                 stage.append(block_cls(inplanes, planes, stride if bi == 0 else 1,
                                        dilation, has_downsample=has_down, device=device,
-                                       dtype=dtype, bn_fused=bn_fused))
+                                       dtype=dtype, bn_fused=bn_fused, fold_bn=fold_bn))
                 inplanes = planes * expansion
             setattr(self, f"layer{li}", nn.Sequential(*stage))
 
@@ -259,11 +284,11 @@ class ResPSPNet(nn.Module):
         c4 = plan[3][0] * expansion
         mid = wm(512) if block == BOTTLENECK else wm(128)
         self.pspmodule = PSPModule(c4, mid, device=device, dtype=dtype, drop_rate=drop_rate,
-                                   bn_fused=bn_fused)
+                                   bn_fused=bn_fused, fold_bn=fold_bn)
         self.head = _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype)
         self.dsn = nn.Sequential(
             _conv(c3, mid, 3, bias=True, device=device, dtype=dtype),
-            ABN(mid, activation="leaky_relu", device=device, fused=bn_fused),
+            bn(mid, "leaky_relu"),
             Dropout2d(drop_rate),
             _conv(mid, num_classes, 1, bias=True, device=device, dtype=dtype),
         )

@@ -132,10 +132,24 @@ def _build_missing(srcs: list[Path]) -> None:
                 os.unlink(tmp)
 
 
-@functools.cache
 def load_kernels() -> types.SimpleNamespace:
     """Build (if needed) and load the kernel libraries; returns the exported
-    C functions of `_SIGNATURES` as attributes, with their argtypes set."""
+    C functions of `_SIGNATURES` as attributes, with their argtypes set.
+
+    Raises while `torch.export` or `torch.compile` traces: a launch reads the
+    data pointers of real tensors, which a traced program does not have, and
+    a program that called these libraries would not be self-contained. Every
+    wrapper asks for the libraries before it touches a CUDA tensor's data or
+    the device tables, so a traced CUDA forward stops here."""
+    if torch.compiler.is_compiling():
+        raise RuntimeError("the port's CUDA kernels cannot be traced (torch.export, "
+                           "torch.compile): trace a model without them (bn_fused=False, "
+                           "resize and argmax as plain torch ops)")
+    return _load_kernels()
+
+
+@functools.cache
+def _load_kernels() -> types.SimpleNamespace:
     if not torch.cuda.is_available():
         raise RuntimeError("the port's CUDA kernels need a CUDA device; "
                            "CPU tensors take the plain PyTorch versions")

@@ -82,6 +82,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous (NHWC, HWIO)")
+    from structure_knowledge_distillation_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()  # before the data pointer is read: raises under tracing
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     route = _route(x.dtype, cin, cout)
@@ -93,9 +96,6 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     elif -(-h // _TILE_H) > _MAX_GRID_YZ or n * -(-cout // _TILE_C) > _MAX_GRID_YZ:
         raise ValueError(f"shape beyond the kernel's grid: x {tuple(x.shape)}, Cout {cout}")
 
-    from structure_knowledge_distillation_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

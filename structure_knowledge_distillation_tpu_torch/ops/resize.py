@@ -48,6 +48,16 @@ def interp_matrix_align_corners(n_in: int, n_out: int,
     return torch.from_numpy(_interp_matrix_np(n_in, n_out)).to(device)
 
 
+def _operator(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """`interp_matrix_align_corners`, but made afresh while `torch.export` or
+    `torch.compile` traces: there the tensor made is a fake one (a constant
+    of the traced program), which the cache must not keep for later eager
+    calls."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_interp_matrix_np(n_in, n_out)).to(device)
+    return interp_matrix_align_corners(n_in, n_out, device)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int],
                                   exact: bool = True) -> torch.Tensor:
     """Bilinear align-corners resize of an NCHW tensor to `size` = (H, W).
@@ -64,8 +74,8 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int],
     h_in, w_in = x.shape[2], x.shape[3]
     if (h_in, w_in) == (h_out, w_out):
         return x
-    a_h = interp_matrix_align_corners(h_in, h_out, x.device)
-    a_w = interp_matrix_align_corners(w_in, w_out, x.device)
+    a_h = _operator(h_in, h_out, x.device)
+    a_w = _operator(w_in, w_out, x.device)
     if not exact and x.dtype != torch.float32:
         a_h, a_w = a_h.to(x.dtype), a_w.to(x.dtype)
         return torch.matmul(torch.matmul(a_h, x), a_w.t())

@@ -5,7 +5,9 @@ Counterpart of `structure_knowledge_distillation_tpu/training/checkpoint.py`,
 in torch formats. The port's `ResPSPNet` already uses the reference's
 state-dict names, so:
   * `state_dict_from_jax` turns the JAX package's variable tree into that
-    state dict (what its `export_torch_respspnet` returns, without flax);
+    state dict (what its `export_torch_respspnet` returns, without flax),
+    and a folded tree (`fold_bn_variables`'s `{"params"}`) into the state
+    dict of `ResPSPNet(fold_bn=True)`;
   * `espnet_state_dict_from_jax` does the same for the ESPNet-C student,
     whose port keeps the flax module names (no reference names exist);
   * `discriminator_state_dict_from_jax` does the same for the SAGAN
@@ -86,7 +88,10 @@ def _torch_module(mod: Tuple[str, ...]) -> Optional[str]:
 def state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
     """The JAX package's ResPSPNet `{"params", "batch_stats"}` tree (nested
     dicts of arrays) as the reference's torch state dict of numpy arrays:
-    HWIO kernels become OIHW, `mean`/`var` become `running_mean`/`running_var`."""
+    HWIO kernels become OIHW, `mean`/`var` become `running_mean`/`running_var`.
+    A folded tree (the JAX `fold_bn_variables`: `{"params"}` alone, a bias on
+    every conv that had an ABN) maps by the same names to the state dict of
+    `ResPSPNet(fold_bn=True)`, which loads it strictly."""
     out: Dict[str, np.ndarray] = {}
     for coll in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(coll, {})).items():

@@ -13,8 +13,9 @@ CUDA-graph replays (`--unroll-steps`), the other inference modes
 (multiscale+flip, sliding tiles, batched groups, the u8 image wire, the
 test-set submission of `cli.test`), and the CamVid ESPNet-C distillation
 recipe with OHEM, `--remat` and the VOC CLIs, data parallelism over
-processes, and the inference export (the BN fold and a `torch.export`
-serving program). Each phase prints one line
+processes, the inference export (the BN fold and a `torch.export`
+serving program), and the KD ablation harness (`cli/ablate_kd.py`, a
+teacher and students trained and scored). Each phase prints one line
 (phases 17 and 18 one a part) and any failure ends the run with a non-zero
 exit:
 
@@ -227,6 +228,24 @@ exit:
      each (kernel ms, launches, the top kernels by time); the folded f32
      logits within 1e-3 (relative, TF32 off) of the unfolded ones. Times print beside the
      card's name and power limit. `--only export` runs phases 1, 2 and 20.
+ 21. ablate_kd: the KD ablation harness (`cli/ablate_kd.py::ablate`, the
+     function its CLI runs) on the card into a temporary state dir: seed 0,
+     a 200-step teacher, then the `none` and `pi+pa+ho` arms for 40 steps
+     each, at the harness's geometry (256², 6 classes, batch 8, unroll 10,
+     bf16, K4/K5 every step, K1 at every evaluation). Each leg must capture
+     once and replay; one replayed chunk of the teacher leg, profiled, must
+     run K4 and K5 once a step and the harness's evaluation of the teacher
+     at init K1 once per group of 8 frames (8), counted by kernel name; the Python counts must equal the
+     legs' eager steps plus one per captured step, and 8 K1 an evaluation;
+     every loss finite and each leg's last chunk's g_loss below its first
+     chunk's; the teacher's val mIoU at least 0.3 and 0.2 above the same
+     model's at init; no leg keeps memory: the second arm starts from the
+     allocated bytes of the first (within 5 %), and the run hands back what
+     it took (the arms' peaks differ by their work and are printed); a
+     rerun on the same state dir trains nothing, launches
+     nothing and writes an equal JSON (the wall aside). Prints each leg's
+     ms per replayed step, capture ms and train seconds beside the card's
+     name and power limit. `--only ablate_kd` runs phases 1, 2 and 21.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -241,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import hashlib
 import inspect
 import io
@@ -265,6 +285,7 @@ import torch.nn.functional as F
 
 from PIL import Image
 
+from structure_knowledge_distillation_tpu_torch.cli import ablate_kd
 from structure_knowledge_distillation_tpu_torch.cli import eval as eval_cli
 from structure_knowledge_distillation_tpu_torch.cli import export as export_cli
 from structure_knowledge_distillation_tpu_torch.cli.export import no_tf32
@@ -1853,10 +1874,10 @@ def _timed_chunk(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def _profiled_chunk(fn) -> dict:
+def _profiled_chunk(fn, kernels: dict = GRAPH_KERNELS) -> dict:
     """One chunk under torch.profiler: wall ms, the union of the device's
     kernel and copy intervals over that wall (the `record_function` ranges,
-    which the trace also puts on the device, left out), and the kernels
+    which the trace also puts on the device, left out), and the `kernels`
     counted by name."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1881,7 +1902,7 @@ def _profiled_chunk(fn) -> dict:
     names = Counter(e.name for e in rows)
     counts = {k: sum(n for name, n in names.items()
                      if re.search(rf"(?<![A-Za-z0-9_]){kernel}(?![A-Za-z0-9_])", name))
-              for k, kernel in GRAPH_KERNELS.items()}
+              for k, kernel in kernels.items()}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / wall_ms, "device_rows": len(rows), "kernels": counts}
 
@@ -3462,22 +3483,173 @@ def phase_export(device: torch.device, card: str) -> dict:
     return {"launches": fold["launches"], "eval_ms": timing, "teacher": teacher}
 
 
+# phase 21: the KD ablation harness (cli/ablate_kd.py) at its own geometry
+# (256², 6 classes, batch 8, unroll 10), cut to seed 0, a 200-step teacher
+# and two arms of 40 steps; its floor for the teacher's learning: chance is
+# about 1/6 per class, a random init scores about 0.1
+AB_TEACHER_STEPS = 200
+AB_ARM_STEPS = 40
+AB_ARMS = ("none", "pi+pa+ho")
+AB_SEEDS = (0,)
+AB_TEACHER_MIOU_MIN = 0.3
+AB_TEACHER_GAIN_MIN = 0.2
+AB_PEAK_REL = 0.05
+AB_PROFILED_CHUNK = 3  # the teacher leg's third chunk: a replay after the capture
+AB_KERNELS = {"K1": "upsampled_argmax_kernel", "K4": GRAPH_KERNELS["K4"],
+              "K5": GRAPH_KERNELS["K5"]}
+
+
+class _ProfiledLoop:
+    """A train loop whose call number `at` runs under `_profiled_chunk`,
+    the profile stored in `probes["chunk"]`; every attribute else is the
+    loop's. It holds nothing after the leg that owns it is freed."""
+
+    def __init__(self, loop, at: int, probes: dict):
+        self._loop, self._at, self._calls, self._probes = loop, at, 0, probes
+
+    def __getattr__(self, name):
+        return getattr(self._loop, name)
+
+    def __call__(self, *args, **kwargs):
+        self._calls += 1
+        if self._calls != self._at:
+            return self._loop(*args, **kwargs)
+        out = {}
+        self._probes["chunk"] = _profiled_chunk(
+            lambda: out.update(self._loop(*args, **kwargs)), AB_KERNELS)
+        return out
+
+
+@contextlib.contextmanager
+def _ablation_probes():
+    """Profile the first leg's AB_PROFILED_CHUNK-th chunk of the harness
+    (K4/K5 counted by kernel name); yields the dict the profile lands in
+    ("chunk")."""
+    probes, made = {"chunk": None}, []
+    make_loop = ablate_kd.make_train_loop
+
+    def profiled_loop(cfg, unroll):
+        made.append(None)
+        return _ProfiledLoop(make_loop(cfg, unroll), AB_PROFILED_CHUNK if len(made) == 1 else 0,
+                             probes)
+
+    ablate_kd.make_train_loop = profiled_loop
+    try:
+        yield probes
+    finally:
+        ablate_kd.make_train_loop = make_loop
+
+
+def phase_ablate_kd(device: torch.device, card: str) -> dict:
+    """Phase 21: the KD ablation harness (`cli/ablate_kd.py::ablate`, the
+    function its CLI runs) on the card into a temporary state dir: seed 0,
+    the teacher, then two arms; then a rerun on the same dir."""
+    t0 = time.perf_counter()
+    palette = torch.from_numpy(ablate_kd._palette()).to(device)
+    # the teacher leg's model at its init: its student, the first draw of
+    # torch.Generator().manual_seed(TEACHER_SEED) (ablate_kd.build)
+    cfg_t = ablate_kd.make_cfg(False, False, False, AB_TEACHER_STEPS, device)
+    init = ablate_kd.make_model(cfg_t, BOTTLENECK,
+                                torch.Generator().manual_seed(ablate_kd.TEACHER_SEED))
+    # the harness's evaluation (the same frames and groups as each leg's),
+    # its K1 counted by kernel name; before the counts are zeroed
+    scores = []
+    ev = _profiled_chunk(lambda: scores.append(ablate_kd.evaluate(init, palette)), AB_KERNELS)
+    miou_init = scores[0]
+    del init
+    with tempfile.TemporaryDirectory(prefix="skd_ablate_") as work:
+        kw = dict(teacher_steps=AB_TEACHER_STEPS, arm_steps=AB_ARM_STEPS, train_chunks=0,
+                  seeds=AB_SEEDS, state_dir=os.path.join(work, "state"), device=device,
+                  arms=AB_ARMS)
+        base = torch.cuda.memory_allocated(device)
+        zero_counts()
+        t_run = time.perf_counter()
+        with _ablation_probes() as probes:
+            results, legs = ablate_kd.ablate(out=os.path.join(work, "a.json"), **kw)
+        counts = read_counts()
+        wall_s = time.perf_counter() - t_run
+        gc.collect()
+        after = torch.cuda.memory_allocated(device)
+        zero_counts()
+        t_rerun = time.perf_counter()
+        _, legs2 = ablate_kd.ablate(out=os.path.join(work, "b.json"), **kw)
+        rerun_s = time.perf_counter() - t_rerun
+        rerun_counts = read_counts()
+        with open(os.path.join(work, "a.json")) as f:
+            first = json.load(f)
+        with open(os.path.join(work, "b.json")) as f:
+            second = json.load(f)
+    check([leg["leg"] for leg in legs] == ["teacher"] + [f"{a}/s0" for a in AB_ARMS],
+          f"legs {[leg['leg'] for leg in legs]}")
+    for leg in legs:
+        check(leg["captures"] == 1 and leg["replayed_steps"] > 0
+              and leg["eager_steps"] + leg["replayed_steps"] == leg["steps"],
+              f"leg {leg['leg']}: {leg['captures']} captures, {leg['eager_steps']} eager and "
+              f"{leg['replayed_steps']} replayed of {leg['steps']} steps")
+        losses = (leg["final_loss"], leg["first_chunk_loss"], leg["last_chunk_loss"])
+        check(all(math.isfinite(v) for v in losses), f"leg {leg['leg']}: losses {losses}")
+        check(leg["last_chunk_loss"] < leg["first_chunk_loss"],
+              f"leg {leg['leg']}: the last chunk's g_loss {leg['last_chunk_loss']} is not below "
+              f"the first's {leg['first_chunk_loss']}")
+    chunk = probes["chunk"]
+    unroll = ablate_kd.UNROLL
+    groups = ablate_kd.VAL_IMAGES // ablate_kd.BATCH
+    check(chunk is not None and chunk["kernels"]["K4"] == unroll
+          and chunk["kernels"]["K5"] == unroll,
+          f"a replayed chunk of {unroll} steps ran {chunk and chunk['kernels']}")
+    check(ev["kernels"]["K1"] == groups, f"an evaluation of {groups} groups ran {ev['kernels']}")
+    # the Python counters: eager steps and a captured chunk's kernels once each,
+    # one K1 per val group of each of the three evaluations
+    per_leg = sum(leg["eager_steps"] + unroll * leg["captures"] for leg in legs)
+    check(counts["K4"] == counts["K5"] == per_leg and counts["K1"] == groups * len(legs),
+          f"launch counts {counts}, want K4 = K5 = {per_leg}, K1 = {groups * len(legs)}")
+    check(not any(counts[k] for k in counts if k not in ("K1", "K4", "K5")),
+          f"kernels off the ablation path launched: {counts}")
+    teacher_miou = results["teacher"]["val_mean_iu"]
+    check(teacher_miou >= AB_TEACHER_MIOU_MIN
+          and teacher_miou - miou_init >= AB_TEACHER_GAIN_MIN,
+          f"the teacher scores {teacher_miou} after {AB_TEACHER_STEPS} steps, {miou_init} at init")
+    # no leg keeps memory: each arm starts from the same allocated bytes (the
+    # shared teacher), and the run hands back what it took. (The arms' peaks
+    # differ by their work: pi+pa+ho runs the teacher forward and D, none
+    # neither; 1.43 against 1.19 GB in the first run.)
+    starts = [leg["start_allocated"] for leg in legs[1:]]
+    check(abs(starts[1] - starts[0]) <= AB_PEAK_REL * starts[0],
+          f"the arms start from {starts} allocated bytes")
+    check(after <= base + AB_PEAK_REL * starts[0],
+          f"{after} bytes allocated after the run, {base} before")
+    check(legs2 == [] and not any(rerun_counts.values()),
+          f"the rerun trained {[leg['leg'] for leg in legs2]}, launches {rerun_counts}")
+    first.pop("wall_s"), second.pop("wall_s")
+    check(first == second, "the rerun's JSON differs")
+    record = {k: {leg["leg"]: leg[k] for leg in legs}
+              for k in ("ms_per_replayed_step", "capture_ms", "train_s", "eager_steps",
+                        "replayed_steps", "first_chunk_loss", "last_chunk_loss", "val_mean_iu",
+                        "start_allocated", "max_memory_allocated")}
+    phase(21, "ablate_kd", card=card, seconds=time.perf_counter() - t0, wall_s=wall_s,
+          rerun_s=rerun_s, allocated_before_and_after=[base, after],
+          teacher_miou_init=miou_init, results=results, legs=record,
+          profiled_chunk=chunk, profiled_eval=ev, launches=counts)
+    return {"launches": counts, "profiled_chunk": chunk["kernels"], "profiled_eval": ev["kernels"]}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     card = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
-    only = {"data_parallel": phase_data_parallel, "export": phase_export}
+    only = {"data_parallel": phase_data_parallel, "export": phase_export,
+            "ablate_kd": phase_ablate_kd}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
-        # one phase alone: phase 19 for a run on several cards, phase 20 to try it
+        # one phase alone: phase 19 for a run on several cards, phases 20 and 21 to try them
         only[argv[1]](device, card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}),
               flush=True)
         return 0
-    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel|export")
+    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel|export|ablate_kd")
     k1 = phase_kernel(device)
     eval_stats = phase_slice(device)
     phase_gpu_vs_cpu(device)
@@ -3497,6 +3669,7 @@ def main(argv=None) -> int:
     clis = camvid["clis"]
     dp = phase_data_parallel(device, card)
     export = phase_export(device, card)
+    ablation = phase_ablate_kd(device, card)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",
@@ -3520,6 +3693,10 @@ def main(argv=None) -> int:
                                 "cli_eval_voc": clis["cli_eval_voc"]["launches"]["K1"]},
         # phase 20: the folded student's sweep (ResPSPNet(fold_bn=True)), once a frame
         "folded_eval_launches": export["launches"]["K1"],
+        # phase 21: the ablation harness's three evaluations of 8 groups of 8
+        # frames (Python counts), and the kernel's count by name in one of them
+        "ablate_kd_launches": ablation["launches"]["K1"],
+        "ablate_kd_profiled_eval": ablation["profiled_eval"]["K1"],
     }]
     ce_source = "structure_knowledge_distillation_tpu_torch/csrc/upsampled_ce.cu"
     pallas_ce = "structure_knowledge_distillation_tpu/ops/pallas_ce.py"
@@ -3550,8 +3727,12 @@ def main(argv=None) -> int:
                          r18_train_launches=train["launches"][key], **camvid["record"][key],
                          r18_shape=ce[key])
         else:
+            # phase 21: the ablation harness's legs (eager steps and each
+            # capture, Python counts) and one replayed chunk of 10 steps by name
             entry.update(path="train", launches=train["launches"][key], **ce[key],
-                         data_parallel_launches_per_rank_step=dp["gloo"]["launches_per_step"][key])
+                         data_parallel_launches_per_rank_step=dp["gloo"]["launches_per_step"][key],
+                         ablate_kd_launches=ablation["launches"][key],
+                         ablate_kd_profiled_chunk=ablation["profiled_chunk"][key])
         kernels.append(entry)
     # K6–K8: launches of the fused train step's timed steps plus the fused
     # eval sweep's; errors and times at the shapes phase_bn_kernel names

@@ -5,7 +5,10 @@ Counterpart of `structure_knowledge_distillation_tpu/training/train_step.py`
 (reference `NetModel.optimize_parameters`, networks/kd_model.py:119-173), in
 the same order and with the same detach points:
 
-  1. the teacher forward in eval mode under `no_grad`;
+  1. the teacher forward in eval mode under `no_grad`, only when a term
+     reads it (`pi`, `pa` or `ho`): the JAX step traces it always and XLA
+     drops it as dead code when none does, so with all three off the port
+     runs the same program, and the teacher slot may hold any module;
   2. the student train forward (the R18 `ResPSPNet` or the ESPNet-C
      `ESPNetC`); the G loss is the task loss + λ_pi·Pi + λ_pa·Pa +
      λ_d·AdvG, where AdvG applies D in train mode to the student's logits
@@ -216,8 +219,9 @@ def _make_body(cfg, group=None) -> Callable:
         preds_s = student(images, draws)
         # cross-family pairs (a floor-stride student under a ceil-stride
         # teacher) align the teacher's grid to the student's; a no-op for
-        # the reference R101 → R18 pair
-        if logits_t.shape[2:] != preds_s[0].shape[2:]:
+        # the reference R101 → R18 pair, and for a step with no teacher
+        # forward (logits_t None)
+        if logits_t is not None and logits_t.shape[2:] != preds_s[0].shape[2:]:
             logits_t = resize_bilinear_align_corners(logits_t, tuple(preds_s[0].shape[2:]))
             feat_t = resize_bilinear_align_corners(feat_t, tuple(preds_s[2].shape[2:]))
         if ohem:
@@ -288,14 +292,17 @@ def _make_body(cfg, group=None) -> Callable:
         student.train()
         disc.train()
 
-        with torch.no_grad(), record_function("teacher_forward"):
-            preds_t = teacher(images)
+        logits_t = feat_t = None
+        if cfg.pi or cfg.pa or cfg.ho:
+            with torch.no_grad(), record_function("teacher_forward"):
+                preds_t = teacher(images)
+            logits_t, feat_t = preds_t[0], preds_t[2]
 
         # --- G (student) loss and update; the gradient reaches the student
         # parameters only
         with record_function("student_loss_and_grad"):
             g_loss, metrics, logits_s, logits_t = g_loss_fn(
-                student, disc, images, labels, preds_t[0], preds_t[2], draws)
+                student, disc, images, labels, logits_t, feat_t, draws)
             sgd_step(student, g_loss, state.g_opt, lr_g)
 
         # --- D loss and update (reference discriminator_backward)

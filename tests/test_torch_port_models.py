@@ -140,7 +140,8 @@ def test_port_imports_without_jax():
         " or m.startswith('structure_knowledge_distillation_tpu.')]\n"
         "assert not bad, bad\n"
         "new = {'data.cache', 'data.native', 'data.lists', 'data.prefetch',"
-        " 'utils.metrics_writer', 'utils.logging_utils', 'models.fold', 'cli.export'}\n"
+        " 'utils.metrics_writer', 'utils.logging_utils', 'models.fold', 'cli.export',"
+        " 'cli.ablate_kd'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "print(len(names))\n"
     )

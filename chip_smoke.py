@@ -246,6 +246,22 @@ exit:
      nothing and writes an equal JSON (the wall aside). Prints each leg's
      ms per replayed step, capture ms and train seconds beside the card's
      name and power limit. `--only ablate_kd` runs phases 1, 2 and 21.
+ 22. helpers: (a) `utils/flops.py::flops_of_fn` on one real train step of
+     `bench.py`'s configuration on the card (phase 8's models and batch:
+     batch 8, 512², bf16, Pi+Pa+Ho, wgan-gp), with the materialised CE
+     (`fused_ce` false) and with the card's default, K4/K5: the first must
+     equal the same step counted on fake CPU tensors (`FakeTensorMode`)
+     exactly, the second that count less the plain CE's upsample matmuls
+     (two heads, forward and backward), which K4/K5 replace; prints both
+     counts and the seconds each count took. (b) `make_predictor` and
+     `native_confusion` on phase 4's student and frames: the predictor's
+     argmax differs from the fast path's K1 class map in at most 1e-3 of
+     the pixels, launches no kernel, and `native_confusion` of its class
+     maps equals the device `confusion_matrix` bit for bit; prints the
+     predictor's ms per frame (host clock around synchronised frames, after
+     a warm-up frame). (c) `count_params` of the R18 student and the R101
+     teacher, printed. (d) `synthetic_batches` feeds phase 8's step once
+     (finite losses). `--only helpers` runs phases 1, 2 and 22.
 
 Every kernel's JSON entry carries `bound_ms`, the least time an H100 SXM
 could take for the call (`card_bound`: its bytes over 3.35 TB/s or its
@@ -260,6 +276,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import hashlib
 import inspect
@@ -284,6 +301,7 @@ import torch
 import torch.nn.functional as F
 
 from PIL import Image
+from torch._subclasses import FakeTensorMode
 
 from structure_knowledge_distillation_tpu_torch.cli import ablate_kd
 from structure_knowledge_distillation_tpu_torch.cli import eval as eval_cli
@@ -292,6 +310,7 @@ from structure_knowledge_distillation_tpu_torch.cli.export import no_tf32
 from structure_knowledge_distillation_tpu_torch.cli import test as test_cli
 from structure_knowledge_distillation_tpu_torch.cli import train as train_cli
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
+from structure_knowledge_distillation_tpu_torch.data.native import native_confusion
 from structure_knowledge_distillation_tpu_torch.data import (
     CAMVID_MEAN,
     IMG_MEAN_BGR,
@@ -303,6 +322,7 @@ from structure_knowledge_distillation_tpu_torch.data import (
     chunk_batches,
     make_cityscapes_lists,
     quantize_u8,
+    synthetic_batches,
     to_nchw,
     trainid2id,
     warm_cache,
@@ -363,8 +383,10 @@ from structure_knowledge_distillation_tpu_torch.training.evaluate import (
     _tile_grid,
     evaluate_main,
     evaluate_sharded,
+    confusion_matrix,
     iu_from_confusion,
     make_fast_val_fn,
+    make_predictor,
     make_msf_val_fn,
     make_sliding_val_fn,
 )
@@ -379,6 +401,8 @@ from structure_knowledge_distillation_tpu_torch.training.train_step import (
     make_train_step,
 )
 from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
+from structure_knowledge_distillation_tpu_torch.utils import count_params
+from structure_knowledge_distillation_tpu_torch.utils.flops import flops_of_fn
 
 FULL_RES = (1024, 2048)
 NUM_CLASSES = 19
@@ -3633,6 +3657,132 @@ def phase_ablate_kd(device: torch.device, card: str) -> dict:
     return {"launches": counts, "profiled_chunk": chunk["kernels"], "profiled_eval": ev["kernels"]}
 
 
+HP_FLOP_RTOL = 1e-9
+HP_FRAMES = 2
+
+
+def _ce_matmul_flops(n: int, c: int, h: int, size: int) -> float:
+    """The plain CE's align-corners upsamples of both heads, forward and
+    backward: two matmuls each way a head (`ops/resize.py`)."""
+    return 2 * 2 * 2.0 * n * c * (size * h * h + size * size * h)
+
+
+def _fake_step_flops(cfg) -> float:
+    """`cfg`'s train step counted on fake CPU tensors: phase 8's models and
+    batch, nothing computed."""
+    cfg = dataclasses.replace(cfg, device="cpu")
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    with FakeTensorMode():
+        teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), NUM_CLASSES, dtype=dtype)
+        teacher.requires_grad_(False)
+        student = ResPSPNet(BASIC, (2, 2, 2, 2), NUM_CLASSES, dtype=dtype)
+        disc = Discriminator(NUM_CLASSES, preprocess_mode=cfg.preprocess_gan_mode,
+                             image_size=cfg.imsize_for_adv, conv_dim=cfg.adv_conv_dim,
+                             dtype=dtype)
+        state = KDTrainState(
+            teacher=teacher, student=student, discriminator=disc,
+            g_opt=make_sgd(student.parameters(), cfg.lr_g, cfg.momentum, cfg.weight_decay),
+            d_opt=make_sgd(disc.parameters(), cfg.lr_d, cfg.momentum, cfg.weight_decay),
+            g_sched=poly_schedule(cfg.lr_g, cfg.num_steps, cfg.power),
+            d_sched=poly_schedule(cfg.lr_d, cfg.num_steps, cfg.power))
+        n, (h, w) = cfg.batch_size, TRAIN_CROP
+        return flops_of_fn(make_train_step(cfg), state, torch.zeros(n, 3, h, w),
+                           torch.zeros(n, h, w, dtype=torch.int32),
+                           torch.Generator().manual_seed(0))
+
+
+def _card_step_flops(cfg, state, images, labels, gen) -> tuple:
+    """One real train step on the card under the counter: (FLOPs, seconds,
+    launch counts)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    flops = flops_of_fn(make_train_step(cfg), state, images, labels, gen)
+    torch.cuda.synchronize()
+    return flops, time.perf_counter() - t0, read_counts()
+
+
+def phase_helpers(device: torch.device, card: str) -> dict:
+    t0 = time.perf_counter()
+    # (a) the MFU numerator of bench.py's step, on the card and abstractly on the CPU
+    plain_cfg = _train_config(fused_ce="false")
+    fused_cfg = _train_config()
+    state, gen = _full_state(fused_cfg, device, bn_fused=False)
+    images, labels = next(synthetic_batches(TRAIN_BATCH, 1, TRAIN_CROP, NUM_CLASSES, seed=0))
+    images = torch.from_numpy(images).permute(0, 3, 1, 2).contiguous().to(device, torch.bfloat16)
+    labels = torch.from_numpy(labels).to(device)
+    card_plain, plain_s, plain_counts = _card_step_flops(plain_cfg, state, images, labels, gen)
+    card_fused, fused_s, fused_counts = _card_step_flops(fused_cfg, state, images, labels, gen)
+    t_fake = time.perf_counter()
+    cpu_plain = _fake_step_flops(plain_cfg)
+    fake_s = time.perf_counter() - t_fake
+    ce_term = _ce_matmul_flops(TRAIN_BATCH, NUM_CLASSES, TRAIN_SHAPE[2], TRAIN_CROP[0])
+    check(abs(card_plain - cpu_plain) <= HP_FLOP_RTOL * cpu_plain,
+          f"the card's step counts {card_plain:.0f} FLOPs, the fake CPU step {cpu_plain:.0f}")
+    check(abs(card_fused - (cpu_plain - ce_term)) <= HP_FLOP_RTOL * cpu_plain,
+          f"the fused step counts {card_fused:.0f}, want {cpu_plain - ce_term:.0f} "
+          f"(the plain step less the CE matmuls, {ce_term:.0f})")
+    check(plain_counts["K4"] == 0 and fused_counts["K4"] == fused_counts["K5"] == 1,
+          f"K4/K5 launched {plain_counts['K4']}/{plain_counts['K5']} (plain CE) and "
+          f"{fused_counts['K4']}/{fused_counts['K5']} (fused) in one counted step")
+    losses = make_train_step(fused_cfg)(state, images, labels, gen)
+    check(all(math.isfinite(float(v)) for v in losses.values()),
+          f"a loss of the synthetic_batches step is not finite: {losses}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) make_predictor and native_confusion on phase 4's student and frames
+    model = _eval_student(device)
+    frames = _eval_frames()[:HP_FRAMES]
+    predict = make_predictor(model, FULL_RES)
+    fast = make_fast_val_fn(model, FULL_RES, NUM_CLASSES)
+    mismatch, times = [], []
+    with torch.no_grad():
+        x0 = torch.from_numpy(frames[0][0]).permute(0, 3, 1, 2).contiguous().to(device)
+        predict(x0)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        for image, label, _, _ in frames:
+            x = torch.from_numpy(image).permute(0, 3, 1, 2).contiguous().to(device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = predict(x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+            check(logits.dtype == torch.float32 and tuple(logits.shape) == (1, NUM_CLASSES,
+                                                                          *FULL_RES),
+                  f"make_predictor gave {logits.dtype} {tuple(logits.shape)}")
+            pred = logits.argmax(1)[0]
+            gt = torch.from_numpy(label[0]).to(device)
+            device_conf = confusion_matrix(pred, gt, NUM_CLASSES).cpu().numpy()
+            host_conf = native_confusion(pred.cpu().numpy(), label[0], NUM_CLASSES)
+            check(np.array_equal(device_conf, host_conf),
+                  "native_confusion differs from the device confusion_matrix")
+            predictor_counts = read_counts()
+            k1_map, _ = fast(x, gt, *FULL_RES)
+            zero_counts()
+            mismatch.append(float((k1_map.long() != pred).float().mean()))
+    check(not any(predictor_counts.values()), f"make_predictor launched {predictor_counts}")
+    check(max(mismatch) <= MISMATCH_SHARE_MAX,
+          f"make_predictor's class maps differ from K1's in {mismatch} of the pixels")
+
+    # (c) the parameter counts
+    with torch.device("meta"):
+        params = {"student R18": count_params(student_model(NUM_CLASSES)),
+                  "teacher R101": count_params(teacher_model(NUM_CLASSES))}
+    check(0 < params["student R18"] < params["teacher R101"], f"parameter counts {params}")
+    record = {"flops_per_step": {"plain_ce_card": card_plain, "plain_ce_fake_cpu": cpu_plain,
+                                 "fused_ce_card": card_fused, "ce_matmul_term": ce_term},
+              "count_seconds": {"plain_ce_card": plain_s, "fused_ce_card": fused_s,
+                                "fake_cpu": fake_s},
+              "predictor_ms_per_frame": times, "predictor_vs_k1_mismatch": mismatch,
+              "params": params}
+    phase(22, "helpers", card=card, seconds=time.perf_counter() - t0, config="bench.py: batch 8, "
+          "512², bf16, Pi+Pa+Ho, wgan-gp, R101 teacher, R18 student, D 65/64", **record)
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     card = phase_device()
@@ -3640,16 +3790,17 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     phase_build()
     only = {"data_parallel": phase_data_parallel, "export": phase_export,
-            "ablate_kd": phase_ablate_kd}
+            "ablate_kd": phase_ablate_kd, "helpers": phase_helpers}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
-        # one phase alone: phase 19 for a run on several cards, phases 20 and 21 to try them
+        # one phase alone: phase 19 for a run on several cards, phases 20–22 to try them
         only[argv[1]](device, card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}),
               flush=True)
         return 0
-    check(not argv, f"unknown arguments {argv}: none, or --only data_parallel|export|ablate_kd")
+    check(not argv, f"unknown arguments {argv}: none, or --only "
+          "data_parallel|export|ablate_kd|helpers")
     k1 = phase_kernel(device)
     eval_stats = phase_slice(device)
     phase_gpu_vs_cpu(device)
@@ -3670,6 +3821,7 @@ def main(argv=None) -> int:
     dp = phase_data_parallel(device, card)
     export = phase_export(device, card)
     ablation = phase_ablate_kd(device, card)
+    phase_helpers(device, card)
     kernels = [{
         "name": "upsampled_argmax",
         "route": "cuda",

@@ -23,7 +23,10 @@ from structure_knowledge_distillation_tpu_torch.data.prefetch import (
     quantize_u8,
     to_nchw,
 )
-from structure_knowledge_distillation_tpu_torch.data.synthetic import SyntheticSegDataset
+from structure_knowledge_distillation_tpu_torch.data.synthetic import (
+    SyntheticSegDataset,
+    synthetic_batches,
+)
 from structure_knowledge_distillation_tpu_torch.data.voc import VOC_MEAN, VOCDataset, VOCTestDataset
 
 # (eval resolution, default class count) per dataset, as in the JAX package:
@@ -69,6 +72,7 @@ __all__ = [
     "trainid2id",
     "warm_cache",
     "SyntheticSegDataset",
+    "synthetic_batches",
     "VOC_MEAN",
     "VOCDataset",
     "VOCTestDataset",

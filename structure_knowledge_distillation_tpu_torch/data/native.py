@@ -35,7 +35,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["get_native_lib", "native_augment", "CXXFLAGS"]
+__all__ = ["get_native_lib", "native_augment", "native_confusion", "CXXFLAGS"]
 
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "augment.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -104,6 +104,9 @@ def get_native_lib() -> ctypes.CDLL:
                 f32p, u8p, ctypes.c_int, f32p, i32p,
             ]
             lib.skd_augment.restype = None
+            lib.skd_confusion.argtypes = [i32p, i32p, ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+            lib.skd_confusion.restype = None
             _lib = lib
         return _lib
 
@@ -142,3 +145,21 @@ def native_augment(img: np.ndarray, label: Optional[np.ndarray], f_scale: float,
         _ptr(out_img, ctypes.c_float), _ptr(out_label, ctypes.c_int32),
     )
     return out_img, out_label
+
+
+def native_confusion(pred: np.ndarray, gt: np.ndarray, num_classes: int,
+                     ignore_label: int = 255) -> np.ndarray:
+    """The (num_classes, num_classes) int64 confusion matrix of integer class
+    maps, rows ground truth and columns prediction, in the native library
+    (the JAX `native_confusion`): pixels whose ground truth is `ignore_label`
+    or either class is outside [0, num_classes) are skipped. Raises where the
+    library cannot be built."""
+    lib = get_native_lib()
+    pred = np.ascontiguousarray(np.asarray(pred).ravel(), np.int32)
+    gt = np.ascontiguousarray(np.asarray(gt).ravel(), np.int32)
+    if pred.size != gt.size:
+        raise ValueError(f"pred has {pred.size} pixels, gt {gt.size}")
+    conf = np.zeros((num_classes, num_classes), np.int64)
+    lib.skd_confusion(_ptr(pred, ctypes.c_int32), _ptr(gt, ctypes.c_int32), pred.size,
+                      num_classes, ignore_label, _ptr(conf, ctypes.c_int64))
+    return conf

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticSegDataset"]
+__all__ = ["SyntheticSegDataset", "synthetic_batches"]
 
 
 class SyntheticSegDataset:
@@ -36,3 +36,13 @@ class SyntheticSegDataset:
         mask = rng.random((h, w)) < self.ignore_frac
         label[mask] = self.ignore_label
         return image, label, np.array([h, w, 3]), f"synthetic_{index}"
+
+
+def synthetic_batches(batch_size: int, steps: int, crop_size=(512, 512),
+                      num_classes: int = 19, seed: int = 0):
+    """`steps` batches of `batch_size` consecutive samples, stacked: (images
+    NHWC float32, labels NHW int32), as the JAX `synthetic_batches`."""
+    ds = SyntheticSegDataset(batch_size * steps, crop_size, num_classes, seed=seed)
+    for s in range(steps):
+        samples = [ds[s * batch_size + i] for i in range(batch_size)]
+        yield np.stack([x[0] for x in samples]), np.stack([x[1] for x in samples])

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from structure_knowledge_distillation_tpu_torch.ops.batch_norm import ABN, running_stats_frozen
-from structure_knowledge_distillation_tpu_torch.ops.pooling import max_pool_2d
+from structure_knowledge_distillation_tpu_torch.ops.pooling import AdaptiveAvgPool2d, max_pool_2d
 from structure_knowledge_distillation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
@@ -204,7 +204,7 @@ class PSPModule(nn.Module):
         conv = lambda *a: _conv(*a, bias=fold_bn, device=device, dtype=dtype)  # noqa: E731
         bn = lambda: _abn(out_features, "leaky_relu", device, bn_fused, fold_bn)  # noqa: E731
         self.stages = nn.ModuleList([
-            nn.Sequential(nn.AdaptiveAvgPool2d((s, s)), conv(in_features, out_features, 1), bn())
+            nn.Sequential(AdaptiveAvgPool2d((s, s)), conv(in_features, out_features, 1), bn())
             for s in sizes
         ])
         self.bottleneck = nn.Sequential(

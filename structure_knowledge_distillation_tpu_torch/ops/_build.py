@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_kernels", "build_log", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_kernels", "build_log", "tracing", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -132,16 +132,26 @@ def _build_missing(srcs: list[Path]) -> None:
                 os.unlink(tmp)
 
 
+def tracing() -> bool:
+    """True while `torch.export` or `torch.compile` traces, or while a
+    `FakeTensorMode` is active (`utils/flops.py` counts under one): the
+    tensors made then are fake, so no cache may keep them and no kernel may
+    read their data."""
+    return (torch.compiler.is_compiling()
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None)
+
+
 def load_kernels() -> types.SimpleNamespace:
     """Build (if needed) and load the kernel libraries; returns the exported
     C functions of `_SIGNATURES` as attributes, with their argtypes set.
 
-    Raises while `torch.export` or `torch.compile` traces: a launch reads the
-    data pointers of real tensors, which a traced program does not have, and
-    a program that called these libraries would not be self-contained. Every
-    wrapper asks for the libraries before it touches a CUDA tensor's data or
-    the device tables, so a traced CUDA forward stops here."""
-    if torch.compiler.is_compiling():
+    Raises while `torch.export` or `torch.compile` traces or a
+    `FakeTensorMode` is active (`tracing`): a launch reads the data pointers
+    of real tensors, which a traced program does not have, and a program
+    that called these libraries would not be self-contained. Every wrapper
+    asks for the libraries before it touches a CUDA tensor's data or the
+    device tables, so a traced CUDA forward stops here."""
+    if tracing():
         raise RuntimeError("the port's CUDA kernels cannot be traced (torch.export, "
                            "torch.compile): trace a model without them (bn_fused=False, "
                            "resize and argmax as plain torch ops)")

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from structure_knowledge_distillation_tpu_torch.ops._build import tracing
+
 __all__ = ["resize_bilinear_align_corners", "interp_matrix_align_corners"]
 
 
@@ -50,10 +52,10 @@ def interp_matrix_align_corners(n_in: int, n_out: int,
 
 def _operator(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """`interp_matrix_align_corners`, but made afresh while `torch.export` or
-    `torch.compile` traces: there the tensor made is a fake one (a constant
-    of the traced program), which the cache must not keep for later eager
-    calls."""
-    if torch.compiler.is_compiling():
+    `torch.compile` traces or a `FakeTensorMode` is active (`_build.tracing`):
+    there the tensor made is a fake one (a constant of the traced program),
+    which the cache must not keep for later eager calls."""
+    if tracing():
         return torch.from_numpy(_interp_matrix_np(n_in, n_out)).to(device)
     return interp_matrix_align_corners(n_in, n_out, device)
 

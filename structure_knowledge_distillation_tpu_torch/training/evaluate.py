@@ -54,6 +54,7 @@ __all__ = [
     "get_palette",
     "confusion_matrix",
     "iu_from_confusion",
+    "make_predictor",
     "make_fast_val_fn",
     "make_fast_val_batch_fn",
     "make_msf_val_batch_fn",
@@ -134,6 +135,19 @@ def _dequantize_wire(image: torch.Tensor, mean: Optional[torch.Tensor]) -> torch
 def _logits(model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     preds = model(x)
     return preds[0] if isinstance(preds, (tuple, list)) else preds
+
+
+def make_predictor(model: torch.nn.Module, out_size: Tuple[int, int]) -> Callable:
+    """The whole-image forward, `predict(images)`: the main head's logits of
+    (N, 3, H, W) images, upsampled in f32 with align-corners to `out_size`
+    through `ops/resize.py` (no K1), as the JAX `make_predictor`. The model
+    must be in eval mode; the caller holds `torch.no_grad()`."""
+    out_size = tuple(out_size)
+
+    def predict(images: torch.Tensor) -> torch.Tensor:
+        return resize_bilinear_align_corners(_logits(model, images).float(), out_size)
+
+    return predict
 
 
 def _mask_padding(labels: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,

@@ -14,10 +14,13 @@ and the train step's skipped teacher forward.
     ablation geometry (256², 6 classes, D 33/16, width 0.25, f32, dropout
     off), on the train-step test's two frames and on four of the harness's
     own, holds against the JAX `make_train_step` with the tolerances of
-    tests/test_torch_port_train_step.py; the harness runs end to end on the
-    CPU, and a rerun on its state dir trains nothing.
+    tests/test_torch_port_train_step.py, and on two of the harness's own
+    with the port's step in f64 (see `test_arm_step_matches_jax`); the
+    harness runs end to end on the CPU, and a rerun on its state dir trains
+    nothing.
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -37,6 +40,7 @@ from structure_knowledge_distillation_tpu.training import make_sgd as jax_make_s
 from structure_knowledge_distillation_tpu.training import make_train_step as jax_make_train_step
 from structure_knowledge_distillation_tpu_torch.cli import ablate_kd as ab
 from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ResPSPNet
+from structure_knowledge_distillation_tpu_torch.ops import resize as tresize
 from structure_knowledge_distillation_tpu_torch.training import checkpoint as tckpt
 from structure_knowledge_distillation_tpu_torch.training.train_step import (
     make_train_loop,
@@ -302,6 +306,10 @@ def test_arm_config_fields(arm, device):
 
 @pytest.fixture(scope="module")
 def jax_start():
+    return make_jax_start()
+
+
+def make_jax_start():
     """Randomised JAX variables of the small teacher, student and D, shared
     by every case of the step parity test, and the "recipe" batch at the
     ablation geometry (256², 6 classes): tests/test_torch_port_train_step.py's
@@ -348,20 +356,59 @@ def _worst_update_gap(jsd, before, after):
     return max(gaps, default=(0.0, "nothing"))
 
 
-@pytest.mark.parametrize("data", ["recipe", "toy"])
-@pytest.mark.parametrize("arm", ab.ARM_NAMES)
-def test_arm_step_matches_jax(jax_start, arm, data):
+def _f64_interp(n_in: int, n_out: int) -> np.ndarray:
+    """The align-corners operator of `ops/resize.py`, kept in f64."""
+    a = np.zeros((n_out, n_in))
+    if n_out == 1 or n_in == 1:
+        a[:, 0] = 1.0
+        return a
+    src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+    frac, rows = src - lo, np.arange(n_out)
+    np.add.at(a, (rows, lo), 1.0 - frac)
+    np.add.at(a, (rows, np.clip(lo + 1, 0, n_in - 1)), frac)
+    return a
+
+
+@contextlib.contextmanager
+def _port_in_f64():
+    """Inside, the port's step computes in f64: the places that compute in
+    f32 on purpose (`Tensor.float`, the resize operators, tensors made at
+    the default dtype) take f64 instead."""
+    patches = ((torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64)),
+               (tresize, "_operator",
+                lambda n_in, n_out, device: torch.from_numpy(_f64_interp(n_in, n_out)).to(device)))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    dtype = torch.get_default_dtype()
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        torch.set_default_dtype(torch.float64)
+        yield
+    finally:
+        torch.set_default_dtype(dtype)
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+# Held apart in the "harness2" case: the D's input BatchNorm weight moves
+# 3.2e-6 on weights of order 1, a few f32 spacings per element. Under input
+# noise of 2^-22 (five draws; the f64 update stored in f32 did not move) the
+# JAX f32 update of it lay 3.7-5.9 % from the port's f64 update stored in
+# f32, and the port's own f32 update 0.0-4.6 % (tests/step_rounding_probe.py):
+# both steps round it to a few percent, so it is held at 10 %, the other
+# tensors at the 2 % envelope.
+HARNESS2_BOUNDS = {("discriminator", "preprocess_additional.weight"): 0.10}
+
+
+def arm_step(start, arm: str, images: torch.Tensor, labels: torch.Tensor, f64: bool = False):
     """One step of the arm's config through the harness's state and loop
-    (unroll 1, the GP α the JAX step's own) against the JAX step on the
-    same weights and batch, with the tolerances of
-    tests/test_torch_port_train_step.py. The tightest tensor is the PSP
-    1×1 bin's BN weight, normalised over the batch's samples alone: over
-    two samples its update is rounding-limited (both packages take the
-    variance as E[x²] − E[x]²), so the toy task runs at batch 4, where that
-    bin is better conditioned. Each case prints its worst update gap (run
-    with -s to read it)."""
-    (teacher, student, disc), (t_vars, s_vars, d_vars), recipe = jax_start
-    images, labels = recipe if data == "recipe" else _toy_batch(4)
+    (unroll 1, the GP α the JAX step's own) and the JAX step on the same
+    weights and batch: (JAX losses, port losses, (JAX student, JAX D) state
+    dicts, the port's (student, D) before and after). With `f64` the port
+    steps in f64 (`_port_in_f64`) and its new parameters are stored in f32,
+    as the JAX step stores them."""
+    (teacher, student, disc), (t_vars, s_vars, d_vars), _ = start
     batch = images.shape[0]
     cfg = ab.make_cfg(num_steps=300, device="cpu", batch=batch, unroll=1, **dict(ab.ARMS)[arm])
     jcfg = JaxTrainConfig(**{f: getattr(cfg, f) for f in JAX_CFG_FIELDS})
@@ -374,10 +421,11 @@ def test_arm_step_matches_jax(jax_start, arm, data):
     new, metrics = step_fn(state, jnp.asarray(images.permute(0, 2, 3, 1).numpy()),
                            jnp.asarray(labels.numpy()))
     jax_losses = {k: float(v) for k, v in metrics.items()}
-    jax_s = tckpt.state_dict_from_jax({"params": new.student_params,
-                                       "batch_stats": new.student_stats})
-    jax_d = tckpt.discriminator_state_dict_from_jax(
-        {"params": new.d_params, "batch_stats": new.d_stats, "spectral": new.d_spectral})
+    jax_sds = tuple({k: np.asarray(v) for k, v in sd.items()} for sd in (
+        tckpt.state_dict_from_jax({"params": new.student_params,
+                                   "batch_stats": new.student_stats}),
+        tckpt.discriminator_state_dict_from_jax(
+            {"params": new.d_params, "batch_stats": new.d_stats, "spectral": new.d_spectral})))
 
     g = torch.Generator().manual_seed(0)
     t_model = ResPSPNet(BOTTLENECK, ab.LAYERS, ab.CLASSES, width_mult=WIDTH, drop_rate=0.0)
@@ -390,22 +438,64 @@ def test_arm_step_matches_jax(jax_start, arm, data):
                               strict=True)
     t_model.requires_grad_(False)
     before = (_numpy_sd(s_model), _numpy_sd(d_model))
+    if f64:
+        for model in (t_model, s_model, d_model):
+            model.double()
+        images, alpha = images.double(), alpha.double()
     pstate = ab.make_state(cfg, t_model, s_model, d_model)
     loop = make_train_loop(cfg, cfg.unroll_steps)
-    out = loop(pstate, images[None], labels[None], 1, g, alpha_k=alpha[None])
-    port_losses = {k: float(v[0]) for k, v in out.items()}
+    with _port_in_f64() if f64 else contextlib.nullcontext():
+        out = loop(pstate, images[None], labels[None], 1, g, alpha_k=alpha[None])
     assert pstate.step == 1
+    port_losses = {k: float(v[0]) for k, v in out.items()}
+    after = tuple({k: v.astype(np.float32) for k, v in _numpy_sd(m).items()}
+                  for m in (s_model, d_model))
+    return jax_losses, port_losses, jax_sds, before, after
 
+
+@pytest.mark.parametrize("data", ["recipe", "toy", "harness2"])
+@pytest.mark.parametrize("arm", ab.ARM_NAMES)
+def test_arm_step_matches_jax(jax_start, arm, data):
+    """One step of the arm's config through the harness's state and loop
+    (unroll 1, the GP α the JAX step's own) against the JAX step on the
+    same weights and batch, with the tolerances of
+    tests/test_torch_port_train_step.py. Three batches: the train-step
+    test's two frames ("recipe"), four of the harness's own (seed 0's first
+    chunk at batch 4, "toy"), and two of them ("harness2", `_toy_batch(2)`).
+
+    At batch 2 on the harness's frames the two f32 steps differ by more than
+    the 2 % envelope (5.9 % on the D's input BN weight, pi+pa+ho), and an
+    f64 run of the port settles why: each f32 step rounds. Against the
+    port's f64 update the JAX f32 one lies at most 0.4 % away (student) and
+    the port's f32 one 1.0 %; perturbing the input by 2^-22 moves each f32
+    step's distance to the f64 update by as much as the two steps differ,
+    while the f64 update, stored in f32, does not move (the numbers:
+    tests/step_rounding_probe.py). So "harness2" runs the port's
+    step in f64 (`_port_in_f64`), stores its new parameters in f32 as the
+    JAX step does, and holds the JAX f32 step against it: the 2 % envelope
+    for every tensor but the one in `HARNESS2_BOUNDS`. Each case prints its
+    worst update gap (run with -s to read it)."""
+    images, labels = {"recipe": lambda: jax_start[2], "toy": lambda: _toy_batch(4),
+                      "harness2": lambda: _toy_batch(2)}[data]()
+    f64 = data == "harness2"
+    jax_losses, port_losses, jax_sds, before, after = arm_step(jax_start, arm, images, labels,
+                                                               f64)
     assert sorted(port_losses) == sorted(jax_losses)
     for k, v in jax_losses.items():
         np.testing.assert_allclose(port_losses[k], v, rtol=LOSS_RTOL[0], atol=LOSS_ATOL[0],
                                    err_msg=f"{arm}:{k}")
-    after = (_numpy_sd(s_model), _numpy_sd(d_model))
-    for i, (label, jsd) in enumerate((("student", jax_s), ("discriminator", jax_d))):
-        jsd = {k: np.asarray(v) for k, v in jsd.items()}
+    for i, label in enumerate(("student", "discriminator")):
+        jsd = jax_sds[i]
         print(f"{arm}/{data} {label}: worst update gap %.4f at %s"
               % _worst_update_gap(jsd, before[i], after[i]))
-        _compare_updates(jsd, before[i], after[i], 1, f"{arm}:{label}")
+        apart = {k: b for (lb, k), b in HARNESS2_BOUNDS.items() if f64 and lb == label}
+        _compare_updates({k: v for k, v in jsd.items() if k not in apart}, before[i], after[i],
+                         1, f"{arm}:{label}")
+        for k, bound in apart.items():
+            dj, dt = jsd[k] - before[i][k], after[i][k] - before[i][k]
+            if np.linalg.norm(dt) > 1e-7:
+                gap = np.linalg.norm(dj - dt) / np.linalg.norm(dt)
+                assert gap < bound, (arm, label, k, gap)
         _compare_state(jsd, after[i], f"{arm}:{label}")
 
 

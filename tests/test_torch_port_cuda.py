@@ -52,7 +52,10 @@ The ESPNet-C, OHEM and remat paths on the card: a small ESPNet-C chunk
 an OHEM chunk (the threshold search without a host sync) each capture and
 replay to the eager steps within the same 1e-5; a fused, rematerialised R18
 student launches K6 again in each block's recompute and equals the plain
-student.
+student. The PSP's adaptive average pool (`ops/pooling.py`) has a backward
+in a fixed order where its bins overlap: two backward passes on the card
+are bit-identical, within f32 rounding of torch's own, and a train step
+runs with `torch.use_deterministic_algorithms(True)`.
 """
 
 import copy
@@ -60,6 +63,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data import cast_batches, device_prefetch
@@ -777,7 +781,8 @@ def test_remat_relaunches_k6_and_equals_plain_on_the_card(exact_cuda):
     """A fused, rematerialised R18 student: its train forward + backward
     launches K6 once more per block ABN (the recompute), and gives the plain
     student's outputs, gradients and running statistics (f32, deterministic
-    cuDNN: the recompute runs the same kernels)."""
+    cuDNN: the recompute runs the same kernels, and no op of the backward
+    adds with atomics; the PSP pool's 13 → 2, 3, 6 bins overlap)."""
     x = torch.randn(2, 3, 96, 96, generator=torch.Generator().manual_seed(0)).to(exact_cuda)
     runs = {}
     for remat in (False, True):
@@ -799,6 +804,37 @@ def test_remat_relaunches_k6_and_equals_plain_on_the_card(exact_cuda):
         torch.testing.assert_close(g0[k], g1[k], rtol=1e-5, atol=1e-6)
     for k in s0:
         torch.testing.assert_close(s0[k], s1[k], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("hw,bins", [((65, 65), 6), ((13, 13), 2), ((33, 47), 3)])
+def test_adaptive_avg_pool_backward_is_deterministic_on_the_card(cuda_device, hw, bins):
+    from structure_knowledge_distillation_tpu_torch.ops.pooling import adaptive_avg_pool_2d
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 512, *hw, generator=g).to(cuda_device).requires_grad_(True)
+    dy = torch.randn(8, 512, bins, bins, generator=g).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        (gx,) = torch.autograd.grad(adaptive_avg_pool_2d(x, (bins, bins)), x, dy)
+        grads.append(gx)
+    (want,) = torch.autograd.grad(F.adaptive_avg_pool2d(x, (bins, bins)), x, dy)
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+def test_train_step_runs_with_deterministic_algorithms(exact_cuda, monkeypatch):
+    """Every op of a fused-CE f32 step has a deterministic implementation on
+    the card (torch raises at the first that has none)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    state, gen = _loop_state(exact_cuda), torch.Generator().manual_seed(3)
+    (images, labels), = _loop_chunks(exact_cuda, 1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        metrics = make_train_step(_loop_cfg())(state, images[0], labels[0], gen)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.isfinite(v) for v in metrics.values())
 
 
 class _SyncingStudent(ResPSPNet):

@@ -2,15 +2,19 @@
 
 resize (and its interpolation matrices, which must be equal exactly),
 ceil-mode max pool at the shapes that give the model its 65×65 and 129×257
-stride-8 maps, adaptive average pool for the PSP bins, and eval-mode ABN.
+stride-8 maps, adaptive average pool for the PSP bins (and its gradient
+against JAX's and, bit for bit but where 2 × 2 bins overlap, against
+torch's own), and eval-mode ABN.
 Tolerance atol=1e-5: both sides compute in f32 from the same operators; only
 the order of float operations differs.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from structure_knowledge_distillation_tpu.ops import batch_norm as jbn
 from structure_knowledge_distillation_tpu.ops import pooling as jpool
@@ -78,6 +82,28 @@ def test_adaptive_avg_pool_matches_jax(hw, bins):
     ref = np.asarray(jpool.adaptive_avg_pool_2d(jnp.asarray(x), (bins, bins)))
     ours = _nhwc(tpool.adaptive_avg_pool_2d(_nchw(x), (bins, bins)))
     np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hw", [(65, 65), (13, 33), (33, 7)])
+@pytest.mark.parametrize("bins", [1, 2, 3, 6])
+def test_adaptive_avg_pool_grad(hw, bins):
+    """The gradient against the JAX VJP, and against torch's own backward bit
+    for bit except at inputs that 2 × 2 overlapping bins hold (four terms
+    summed in another order)."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, *hw, 4).astype(np.float32)
+    g = rng.randn(2, bins, bins, 4).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jpool.adaptive_avg_pool_2d(t, (bins, bins)), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = _nchw(x).requires_grad_(True)
+    tpool.adaptive_avg_pool_2d(xt, (bins, bins)).backward(_nchw(g))
+    np.testing.assert_allclose(_nhwc(xt.grad), ref, rtol=1e-6, atol=1e-7)
+    xs = _nchw(x).requires_grad_(True)
+    F.adaptive_avg_pool2d(xs, (bins, bins)).backward(_nchw(g))
+    two = [tpool._bin_taps_np(n, bins)[2].astype(bool) for n in hw]
+    corner = torch.from_numpy(two[0][:, None] & two[1][None, :])
+    assert torch.equal(xt.grad[..., ~corner], xs.grad[..., ~corner])
+    torch.testing.assert_close(xt.grad, xs.grad, rtol=0, atol=1e-6 * float(xs.grad.abs().max()))
 
 
 @pytest.mark.parametrize("activation", ["none", "leaky_relu", "elu"])

@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from structure_knowledge_distillation_tpu_torch.utils import spans
+
 __all__ = ["load_kernels", "build_log", "tracing", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -48,6 +50,7 @@ _SIGNATURES = {
                     _c_int, _c_int, _c_void_p],
     "skd_bn_bwd": [*[_c_void_p] * 8, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int64,
                    _c_float, _c_int, _c_int, _c_void_p],
+    "skd_mark": [_c_void_p, _c_int, _c_int, _c_void_p],
     "skd_conv3x3": [*[_c_void_p] * 3, _c_int, *[_c_int] * 5, _c_void_p],
     "skd_conv3x3_wgmma": [*[_c_void_p] * 3, *[_c_int] * 5, _c_void_p],
     "skd_upsampled_argmax": [_c_void_p, _c_int, *[_c_void_p] * 6, *[_c_int] * 8, _c_void_p],
@@ -98,6 +101,7 @@ def _build_missing(srcs: list[Path]) -> None:
     todo = [src for src in srcs if not _library_path(src).is_file()]
     if not todo:
         return
+    spans.count("kernels.built", len(todo))
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -163,9 +167,10 @@ def _load_kernels() -> types.SimpleNamespace:
     if not torch.cuda.is_available():
         raise RuntimeError("the port's CUDA kernels need a CUDA device; "
                            "CPU tensors take the plain PyTorch versions")
-    srcs = _sources()
-    _build_missing(srcs)
-    libs = [ctypes.CDLL(str(_library_path(src))) for src in srcs]
+    with spans.span("kernels.load"):
+        srcs = _sources()
+        _build_missing(srcs)
+        libs = [ctypes.CDLL(str(_library_path(src))) for src in srcs]
     fns = {}
     for name, argtypes in _SIGNATURES.items():
         found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]

@@ -49,6 +49,7 @@ from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
     all_reduce_sum,
     world_of,
 )
+from structure_knowledge_distillation_tpu_torch.utils import spans
 
 __all__ = [
     "get_palette",
@@ -492,7 +493,13 @@ def evaluate_main(
     class map is written there as a palette PNG, as labelIds
     (`trainid2id`) in the test sweep when `remap_train_ids`. `input_mean`
     selects the u8 image wire. `device` defaults to the model's; the int64
-    confusion (numpy, rows = ground truth) comes back once, at the end."""
+    confusion (numpy, rows = ground truth) comes back once, at the end.
+
+    Host spans (`utils/spans.py`, while recording): per frame the root
+    `eval.frame`, with the children `eval.next` (the loader's yield),
+    `eval.wire` (the host's quantization and narrowing), `eval.to_device`
+    (both arrays' `_to_device`: pinning and the copies' enqueue) and
+    `eval.launch` (`run`: the forward, K1 and the confusion enqueued)."""
     scales = tuple(scales)
     out_size = tuple(out_size)
     device = torch.device(device) if device is not None else _model_device(model)
@@ -507,25 +514,28 @@ def evaluate_main(
     narrow = _narrow_labels(num_classes, ignore_label)
     conf = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     with torch.no_grad():
-        for batch in loader:
-            if eval_type == "val":
-                image, label, size, name = batch
-                h, w = int(size[0][0]), int(size[0][1])
-                lab = np.asarray(label[0])
-            else:
-                image, size, name = batch
-                h, w = out_size
-                lab = np.zeros(out_size, np.uint8)
-            image = np.asarray(image)
-            if input_mean is not None:
-                image = _quantize_wire(image, input_mean)
-            if narrow:
-                lab = lab.astype(np.uint8)
+        for batch in spans.iterate(loader, "eval.frame", "eval.next"):
+            with spans.span("eval.wire"):
+                if eval_type == "val":
+                    image, label, size, name = batch
+                    h, w = int(size[0][0]), int(size[0][1])
+                    lab = np.asarray(label[0])
+                else:
+                    image, size, name = batch
+                    h, w = out_size
+                    lab = np.zeros(out_size, np.uint8)
+                image = np.asarray(image)
+                if input_mean is not None:
+                    image = _quantize_wire(image, input_mean)
+                if narrow:
+                    lab = lab.astype(np.uint8)
             # HWC on the host, NCHW on the device: the transpose runs there
-            pred, frame_conf = run(to_nchw(_to_device(image, device)), _to_device(lab, device),
-                                   h, w)
-            if eval_type == "val":
-                conf += frame_conf
+            with spans.span("eval.to_device"):
+                image_d, lab_d = to_nchw(_to_device(image, device)), _to_device(lab, device)
+            with spans.span("eval.launch"):
+                pred, frame_conf = run(image_d, lab_d, h, w)
+                if eval_type == "val":
+                    conf += frame_conf
             if output_dir is not None:
                 out = pred.cpu().numpy()
                 if eval_type == "test" and remap_train_ids:

@@ -33,9 +33,12 @@ modules are updated in place; the metrics come back as detached tensors, so
 a step does not wait for the device.
 
 The teacher forward, the G loss-and-update and the D loss-and-update run
-under `torch.profiler.record_function` ranges (`teacher_forward`, as the JAX
-step's `jax.named_scope`s, `student_loss_and_grad` and `d_loss_and_grad`),
-so a profile splits the step the same way.
+as the phases `teacher_forward` (as the JAX step's `jax.named_scope`s),
+`student_loss_and_grad` and `d_loss_and_grad` of `utils/spans.py`: each is
+a `torch.profiler.record_function` range, so a profile of eager steps splits
+the step the same way, and while spans are recorded on the card each is
+bracketed by device marks, which a captured chunk replays, so a replay's
+device time splits the same way too (`spans.stop().phases`).
 
 Randomness: the dropout masks and the GP α are uniforms from one
 `torch.Generator`, drawn on the CPU in a fixed order each step (the DSN
@@ -78,6 +81,13 @@ global batch, and together they compute the global-batch step.
     cannot be captured: with a gloo group the loop runs every chunk eagerly,
     by that rule, never by catching a failed capture.
 Without a group the step issues no collective.
+
+Host spans of the loop (`utils/spans.py`, while recording): `loop.eager`
+(a chunk run eagerly), `loop.capture` (what `capture_ms` times),
+`loop.stage` (a replay's static-input copies and host draws; its child
+`loop.stage.wait` the wait until the previous chunk's copy has read the
+pinned staging buffer) and `loop.launch` (`graph.replay()` and the outputs'
+clones).
 """
 
 from __future__ import annotations
@@ -90,7 +100,6 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from structure_knowledge_distillation_tpu_torch.data.cityscapes import IMG_MEAN_BGR
 from structure_knowledge_distillation_tpu_torch.losses import (
@@ -117,6 +126,7 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
     set_lr,
     sgd_update,
 )
+from structure_knowledge_distillation_tpu_torch.utils import spans
 
 __all__ = ["make_train_step", "make_train_loop", "TrainLoop"]
 
@@ -294,20 +304,20 @@ def _make_body(cfg, group=None) -> Callable:
 
         logits_t = feat_t = None
         if cfg.pi or cfg.pa or cfg.ho:
-            with torch.no_grad(), record_function("teacher_forward"):
+            with torch.no_grad(), spans.phase("teacher_forward", images):
                 preds_t = teacher(images)
             logits_t, feat_t = preds_t[0], preds_t[2]
 
         # --- G (student) loss and update; the gradient reaches the student
         # parameters only
-        with record_function("student_loss_and_grad"):
+        with spans.phase("student_loss_and_grad", images):
             g_loss, metrics, logits_s, logits_t = g_loss_fn(
                 student, disc, images, labels, logits_t, feat_t, draws)
             sgd_step(student, g_loss, state.g_opt, lr_g)
 
         # --- D loss and update (reference discriminator_backward)
         if cfg.ho:
-            with record_function("d_loss_and_grad"):
+            with spans.phase("d_loss_and_grad", images):
                 d_loss = d_loss_fn(disc, logits_t, logits_s, draws, alpha)
                 sgd_step(disc, d_loss, state.d_opt, lr_d)
             metrics["d_loss"] = d_loss
@@ -439,12 +449,14 @@ class TrainLoop:
                              f"{tuple(images_k.shape)}, labels {tuple(labels_k.shape)}, "
                              f"n_valid {n_valid}")
         if images_k.device.type != "cuda":
-            return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
-                              generator, alpha_k)
+            with spans.span("loop.eager"):
+                return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
+                                  generator, alpha_k)
         if self._eager_only:
             self.eager_steps += n_valid
-            return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
-                              generator)
+            with spans.span("loop.eager"):
+                return _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
+                                  generator)
         if alpha_k is not None:
             raise ValueError("a fed α is for CPU parity runs; on the card the loop draws α "
                              "from the generator")
@@ -471,8 +483,9 @@ class TrainLoop:
         if n_valid < k or self._plan is None:
             # a tail, or the warm-up chunk of a capture
             draws = _HostDraws(generator, images_k.device)
-            metrics = _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
-                                 generator, draws=draws)
+            with spans.span("loop.eager"):
+                metrics = _run_eager(self._run_steps, state, images_k, labels_k, n_valid, k,
+                                     generator, draws=draws)
             self.eager_steps += n_valid
             if n_valid == k:
                 per_step = len(draws.shapes) // k
@@ -486,16 +499,19 @@ class TrainLoop:
             self._capture(state, images_k, labels_k, generator)
         else:
             self._stage(state, images_k, labels_k, generator)
-        self._graph.graph.replay()
+        with spans.span("loop.launch"):
+            self._graph.graph.replay()
+            outputs = {name: v.clone() for name, v in self._graph.outputs.items()}
         _advance(state, k)
         self.replays += 1
         self.replayed_steps += k
-        return {name: v.clone() for name, v in self._graph.outputs.items()}
+        return outputs
 
     def _signature(self, state, images_k, labels_k) -> tuple:
         return (tuple(t.data_ptr() for t in _state_tensors(state)),
                 tuple(images_k.shape), images_k.dtype, tuple(labels_k.shape), labels_k.dtype)
 
+    @spans.spanned("loop.stage")
     def _stage(self, state, images_k, labels_k, generator) -> None:
         """Copy the chunk into the static inputs and write its lrs and
         uniforms into the scalar buffer, on the loop's stream."""
@@ -504,7 +520,8 @@ class TrainLoop:
         g.labels.copy_(labels_k)
         k = self.unroll
         if self._host_free is not None:
-            self._host_free.synchronize()  # the previous chunk's copy has read it
+            with spans.span("loop.stage.wait"):
+                self._host_free.synchronize()  # the previous chunk's copy has read it
         host = self._host
         host[:2 * k] = torch.tensor(_lr_values(state, k), dtype=torch.float32)
         offset = 2 * k
@@ -530,21 +547,25 @@ class TrainLoop:
         self._stage(state, images_k, labels_k, generator)
         g = self._graph
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            draws = _BufferDraws(g.scalars[2 * k:], self._plan)
-            # thread_local: the prefetch thread keeps staging batches (pinned
-            # and device allocations on its own stream) during the capture
-            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-                g.outputs = self._run_steps(state, g.images, g.labels, k, draws, g.scalars[:k],
-                                            g.scalars[k:2 * k])
-            if draws.offset != draws.flat.numel():
-                raise RuntimeError(f"the captured chunk drew {draws.offset} of "
-                                   f"{draws.flat.numel()} uniforms")
-        except BaseException:
-            self._graph = None
-            raise
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        spans.reserve(device)  # the phases' mark ring, which the graph writes
+        with spans.span("loop.capture"):
+            t0 = time.perf_counter()
+            try:
+                draws = _BufferDraws(g.scalars[2 * k:], self._plan)
+                # thread_local: the prefetch thread keeps staging batches
+                # (pinned and device allocations on its own stream) during
+                # the capture
+                with torch.cuda.graph(graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    g.outputs = self._run_steps(state, g.images, g.labels, k, draws,
+                                                g.scalars[:k], g.scalars[k:2 * k])
+                if draws.offset != draws.flat.numel():
+                    raise RuntimeError(f"the captured chunk drew {draws.offset} of "
+                                       f"{draws.flat.numel()} uniforms")
+            except BaseException:
+                self._graph = None
+                raise
+            self.capture_ms = 1e3 * (time.perf_counter() - t0)
         self.captures += 1
         g.graph = graph
 

@@ -36,7 +36,23 @@ it under the hit's step with the checkpoint's `state_step` at the chunk's
 end, and SIGTERM is answered at the chunk boundary. `profile_dir` traces
 steps [first + 9, first + 9 + profile_steps) of the run with
 `torch.profiler` (CPU and, on the card, CUDA activities), starting and
-stopping at chunk boundaries, into a trace file in `profile_dir`.
+stopping at chunk boundaries, into a trace file in `profile_dir`. On rank
+0 it also records the port's spans (`utils/spans.py`), unless a caller
+records already, from the start of `fit` to the end of the profiler's
+window (or of a shorter run), and then logs one line: the device ms a step
+of each phase of the train step (median over the replayed steps), the mean
+host ms a replayed chunk in each of its parts, and the set-up's seconds in
+`loop.eager`, `loop.capture` and `kernels.load`. A `fit` ended by an error
+logs no spans.
+
+Host spans (`utils/spans.py`, while recording): `trainer.init`
+(`KDTrainer.__init__`, the teacher drawn and loaded included); per chunk
+(or step) of `fit` the root `fit.chunk` with the children `fit.next` (the
+wait for the next chunk from the iterator), `fit.log` (the read of a logged
+chunk's metrics: the host waiting for the device), `fit.eval`, `fit.save`
+and `fit.profile` (the profiler started, or the device synchronized and the
+profiler stopped, its trace written), and the loop's spans
+(`training/train_step.py`).
 
 With `num_data_shards` N > 1 the trainer is one rank of N (the JAX trainer
 on a `data` mesh, trainer.py:116-145): it joins the process group (the
@@ -102,7 +118,7 @@ from structure_knowledge_distillation_tpu_torch.training.train_step import (
     make_train_loop,
     make_train_step,
 )
-from structure_knowledge_distillation_tpu_torch.utils import MetricsWriter
+from structure_knowledge_distillation_tpu_torch.utils import MetricsWriter, spans
 
 __all__ = ["KDTrainer"]
 
@@ -140,6 +156,7 @@ class KDTrainer:
     data-parallel run (see the module's docstring); `group`, `rank` and
     `world` say which."""
 
+    @spans.spanned("trainer.init")
     def __init__(self, cfg: TrainConfig, teacher_state: Optional[Mapping] = None,
                  student_state: Optional[Mapping] = None, d_state: Optional[Mapping] = None):
         self.cfg = cfg
@@ -321,17 +338,26 @@ class KDTrainer:
         profile_start = first_step + 9
         profile_end = profile_start + cfg.profile_steps  # exclusive
         profile_dir, prof = (cfg.profile_dir if self.rank == 0 else ""), None
+        record = bool(profile_dir) and not spans.recording()
+        if record:
+            spans.start()
         try:
-            for start, n_valid, batch in self._groups(train_iter, first_step):
+            for start, n_valid, batch in spans.iterate(self._groups(train_iter, first_step),
+                                                       "fit.chunk", "fit.next"):
+                if record and not profile_dir:  # the window closed with the last chunk
+                    record = False
+                    self._log_spans(spans.stop())
                 end = start + n_valid - 1
                 if profile_dir and prof is None and start <= profile_start <= end:
-                    prof = self._start_profiler(profile_dir)
+                    with spans.span("fit.profile"):
+                        prof = self._start_profiler(profile_dir)
                 metrics_k = self._train(batch, n_valid)
                 steps_since_log += n_valid
                 if prof is not None and end >= profile_end - 1:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    prof.stop()
+                    with spans.span("fit.profile"):
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        prof.stop()
                     prof = None
                     log.info("profiler trace of steps %d-%d written to %s", profile_start,
                              end, profile_dir)
@@ -339,7 +365,8 @@ class KDTrainer:
 
                 log_hits = [s for s in range(start, end + 1) if s % cfg.log_every == 0]
                 if log_hits and self.rank == 0:
-                    ms = {k: v[:n_valid].tolist() for k, v in metrics_k.items()}
+                    with spans.span("fit.log"):
+                        ms = {k: v[:n_valid].tolist() for k, v in metrics_k.items()}
                     dt = time.time() - t_last
                     ips = steps_since_log * cfg.batch_size / max(dt, 1e-9)
                     t_last = time.time()
@@ -362,7 +389,8 @@ class KDTrainer:
                     # unroll - 1 steps after the hit); the files keep the hit
                     step = eval_hits[-1]
                     loader = val_loader() if callable(val_loader) else val_loader
-                    mean_iu, iu_array = self.evaluate(loader, eval_out_size)
+                    with spans.span("fit.eval"):
+                        mean_iu, iu_array = self.evaluate(loader, eval_out_size)
                     is_best = mean_iu > self.best_mean_iu
                     self.best_mean_iu = max(self.best_mean_iu, mean_iu)
                     if self.rank == 0:
@@ -370,7 +398,9 @@ class KDTrainer:
                                  np.array2string(iu_array, precision=4))
                         if writer is not None:
                             writer.write(step, {"val_mean_iu": mean_iu})
-                        self.save_checkpoint(step, mean_iu, is_best=is_best, state_step=end)
+                        with spans.span("fit.save"):
+                            self.save_checkpoint(step, mean_iu, is_best=is_best,
+                                                 state_step=end)
                     self._saved()
 
                 preempted = self._preempt_requested
@@ -386,15 +416,32 @@ class KDTrainer:
                                  path)
                     self._saved()
                     break
+            if record:
+                record = False
+                self._log_spans(spans.stop())
         finally:
             if prof is not None:
                 prof.stop()
+            if record:
+                spans.stop(read_marks=False)
         if self.train_loop is not None and self.rank == 0:
             lp = self.train_loop
             log.info("multi-step loop: %d steps in %d CUDA-graph replays (%d captures), "
                      "%d steps eager", lp.replayed_steps, lp.replays, lp.captures,
                      lp.eager_steps)
         return self.best_mean_iu
+
+    def _log_spans(self, record: spans.Record) -> None:
+        def fmt(d, digits=3):
+            return ", ".join(f"{k} {v:.{digits}f}" for k, v in d.items()) or "none"
+
+        steps = max((len(v) for v in (record.replayed_phases() or record.phases).values()),
+                    default=0)
+        log.info("spans: device ms a step (median of %d) %s; host ms a replayed chunk "
+                 "(mean of %d) %s; set-up s %s (%d kernels built)", steps,
+                 fmt(record.device_ms_a_step()), len(record.replayed_chunks()),
+                 fmt(record.host_ms_a_chunk()), fmt(record.setup_s(), 2),
+                 record.counters.get("kernels.built", 0))
 
     def evaluate(self, val_loader: Iterable, out_size=(1024, 2048)):
         """The student's whole-image val sweep; returns (mean_IU, IU_array).

@@ -58,8 +58,10 @@ exit:
   8. train: KDTrainer.fit at the reference recipe (batch 8, 512² crops,
      bf16 convs, Pi+Pa+Ho, wgan-gp) with a seeded random full-width R101
      teacher and seeded R18 student and discriminator: 2 warm-up steps, then
-     5 timed steps; every loss finite, student and D parameters changed, and
-     K4 and K5 launched once per step;
+     5 timed steps; every loss finite, student and D parameters changed,
+     K4 and K5 launched once per step, and K6 once per teacher ABN a step
+     (the trainer fuses its frozen teacher's ABNs on the card; the student
+     and D stay unfused: no K7, no K8);
   9. train_gpu_vs_cpu: one f32 step of the CPU tests' small configuration on
      cuda (TF32 off) and on cpu from the same weights and GP α: losses and
      parameter updates agree;
@@ -70,13 +72,15 @@ exit:
      relative, the bf16 forward within one bf16 ulp, K7's sums within 1e-5
      of their largest entry, dx within 1e-5 of max|dx| (f32) or one bf16
      ulp of it (bf16), two runs bit-identical; warm median device times;
- 11. train_fused: phase 8's setup with bn_fused=True teacher and student,
+ 11. train_fused: phase 8's setup with bn_fused=True student as well,
      through make_train_step (the function KDTrainer.fit calls); every loss
      finite, student and D parameters changed, K6 launched once per ABN of
      teacher and student per step, K7 and K8 once per student ABN. One more
      step records the shape, dtype and activation of every K6–K8 launch;
      each distinct call is timed once, and the line prints per kernel
-     Σ launches × ms and Σ launches × bound_ms per step (`bn_per_step`);
+     Σ launches × ms and Σ launches × bound_ms per step (`bn_per_step`),
+     beside phase 8's numbers (`trainer_step`: the teacher fused, the
+     student not);
  12. train_fused_gpu_vs_cpu: phase 9 with bn_fused=True on both devices;
  13. eval_fused: phase 4's student with bn_fused=True through evaluate_main;
      K6 launched once per ABN per frame, mIoU within 1e-3 of the unfused
@@ -971,13 +975,19 @@ def phase_train(device: torch.device) -> dict:
     _check_steps(steps, s_before, d_before, trainer.student, trainer.discriminator)
     check(launches["K4"] == TIMED_STEPS and launches["K5"] == TIMED_STEPS,
           f"K4/K5 launched {launches['K4']}/{launches['K5']} times in {TIMED_STEPS} steps")
-    check(launches["K6"] == 0, f"the unfused step launched K6 {launches['K6']} times")
+    n_teacher = _fused_abns(trainer.teacher)
+    check(n_teacher == trainer.teacher_fused_abn == 112 and _fused_abns(trainer.student) == 0,
+          f"the trainer fused {n_teacher} teacher ABNs and "
+          f"{_fused_abns(trainer.student)} student ABNs")
+    check(launches["K6"] == n_teacher * TIMED_STEPS and launches["K7"] == launches["K8"] == 0,
+          f"the trainer's step launched K6/K7/K8 {launches['K6']}/{launches['K7']}/"
+          f"{launches['K8']} times in {TIMED_STEPS} steps")
     stats = {"ms_per_step": 1e3 * took / TIMED_STEPS,
              "images_per_second": cfg.batch_size * TIMED_STEPS / took,
              "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
-    phase(8, "train", model="R101 teacher -> R18 student, full width, bf16 convs",
+    phase(8, "train", model="R101 teacher (fused ABN) -> R18 student, full width, bf16 convs",
           batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS, **stats,
-          launches={k: launches[k] for k in ("K2", "K3", "K4", "K5")},
+          launches={k: launches[k] for k in ("K2", "K3", "K4", "K5", "K6")},
           first_step=steps[0], last_step=steps[-1])
     return {"launches": launches, **stats}
 
@@ -986,7 +996,7 @@ def _fused_abns(*models) -> int:
     return sum(isinstance(m, ABN) and m.fused for model in models for m in model.modules())
 
 
-def phase_train_fused(device: torch.device, unfused: dict) -> dict:
+def phase_train_fused(device: torch.device, trainer_step: dict) -> dict:
     """Phase 8's models and batches with bn_fused=True teacher and student:
     the R101 teacher from the same seed and running statistics, student and
     D drawn from the trainer's generator as `KDTrainer` draws them, the steps
@@ -1050,7 +1060,7 @@ def phase_train_fused(device: torch.device, unfused: dict) -> dict:
     phase(11, "train_fused", model="R101 teacher -> R18 student, bn_fused, full width, bf16 convs",
           batch=cfg.batch_size, crop=list(TRAIN_CROP), steps=TIMED_STEPS,
           abn_modules={"teacher": n_teacher, "student": n_student}, **stats,
-          unfused={k: unfused[k] for k in stats},
+          trainer_step={k: trainer_step[k] for k in stats},
           launches={k: launches[k] for k in expect}, first_step=steps[0], last_step=steps[-1],
           bn_per_step=per_step)
     return {"launches": launches}

@@ -45,8 +45,18 @@ host ms a replayed chunk in each of its parts, and the set-up's seconds in
 `loop.eager`, `loop.capture` and `kernels.load`. A `fit` ended by an error
 logs no spans.
 
+The frozen teacher's ABNs take the fused eval kernel K6
+(`fused_bn.abn_fused_eval`: one bf16 read and one write a map in place of
+the unfused path's f32 passes) where its device is CUDA
+(`teacher_bn_fused`); on the CPU it stays unfused, so the CPU parity runs
+see the numbers of the JAX package's unfused path. The student and D stay
+unfused: their ABNs are differentiated (D's twice, by the GP).
+
 Host spans (`utils/spans.py`, while recording): `trainer.init`
-(`KDTrainer.__init__`, the teacher drawn and loaded included); per chunk
+(`KDTrainer.__init__`, the teacher drawn and loaded included) and the
+counter `teacher.fused_abn` (the teacher's ABNs that take K6: 112 for the
+R101 on the card, 0 on the CPU), counted again when `fit` starts its own
+recording; per chunk
 (or step) of `fit` the root `fit.chunk` with the children `fit.next` (the
 wait for the next chunk from the iterator), `fit.log` (the read of a logged
 chunk's metrics: the host waiting for the device), `fit.eval`, `fit.save`
@@ -91,7 +101,7 @@ from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 from structure_knowledge_distillation_tpu_torch.data.prefetch import Chunk, chunk_batches, to_nchw
 from structure_knowledge_distillation_tpu_torch.models import BASIC, BOTTLENECK, ESPNetC, ResPSPNet
 from structure_knowledge_distillation_tpu_torch.models.sagan import Discriminator
-from structure_knowledge_distillation_tpu_torch.ops.batch_norm import set_process_group
+from structure_knowledge_distillation_tpu_torch.ops.batch_norm import ABN, set_process_group
 from structure_knowledge_distillation_tpu_torch.parallel.data_parallel import (
     any_rank,
     broadcast_state,
@@ -135,6 +145,18 @@ def _enumerate_steps(chunks: Iterable[Chunk], first_step: int) -> Iterator[tuple
         step += chunk.n_valid
 
 
+def teacher_bn_fused(device) -> bool:
+    """Whether the frozen teacher's ABNs take the fused eval kernel K6: on a
+    CUDA device, yes (the teacher runs in eval mode under `no_grad`, which is
+    all `abn_fused_eval` serves); on the CPU no, where the fused ABN's plain
+    version would add in another order than the unfused path."""
+    return torch.device(device).type == "cuda"
+
+
+def _fused_abns(model: torch.nn.Module) -> int:
+    return sum(isinstance(m, ABN) and m.fused for m in model.modules())
+
+
 def _as_tensors(state_dict: Mapping) -> dict:
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
             for k, v in state_dict.items()}
@@ -172,7 +194,8 @@ class KDTrainer:
 
         self.teacher = ResPSPNet(BOTTLENECK, tuple(cfg.teacher_layers), cfg.classes_num,
                                  device=device, dtype=dtype,
-                                 generator=torch.Generator().manual_seed(cfg.seed))
+                                 generator=torch.Generator().manual_seed(cfg.seed),
+                                 bn_fused=teacher_bn_fused(device))
         if teacher_state is None:
             with torch.no_grad():
                 for t in list(self.teacher.parameters()) + list(self.teacher.buffers()):
@@ -182,6 +205,8 @@ class KDTrainer:
         else:
             load_reference_state_dict(self.teacher, teacher_state)
         self.teacher.requires_grad_(False)
+        self.teacher_fused_abn = _fused_abns(self.teacher)
+        spans.count("teacher.fused_abn", self.teacher_fused_abn)
 
         self.generator = torch.Generator().manual_seed(cfg.seed)
         if cfg.student_arch == "espnet":
@@ -341,6 +366,7 @@ class KDTrainer:
         record = bool(profile_dir) and not spans.recording()
         if record:
             spans.start()
+            spans.count("teacher.fused_abn", self.teacher_fused_abn)
         try:
             for start, n_valid, batch in spans.iterate(self._groups(train_iter, first_step),
                                                        "fit.chunk", "fit.next"):
@@ -438,10 +464,11 @@ class KDTrainer:
         steps = max((len(v) for v in (record.replayed_phases() or record.phases).values()),
                     default=0)
         log.info("spans: device ms a step (median of %d) %s; host ms a replayed chunk "
-                 "(mean of %d) %s; set-up s %s (%d kernels built)", steps,
-                 fmt(record.device_ms_a_step()), len(record.replayed_chunks()),
+                 "(mean of %d) %s; set-up s %s (%d kernels built, %d teacher ABNs fused)",
+                 steps, fmt(record.device_ms_a_step()), len(record.replayed_chunks()),
                  fmt(record.host_ms_a_chunk()), fmt(record.setup_s(), 2),
-                 record.counters.get("kernels.built", 0))
+                 record.counters.get("kernels.built", 0),
+                 record.counters.get("teacher.fused_abn", 0))
 
     def evaluate(self, val_loader: Iterable, out_size=(1024, 2048)):
         """The student's whole-image val sweep; returns (mean_IU, IU_array).

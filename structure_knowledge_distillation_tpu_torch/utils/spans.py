@@ -39,11 +39,13 @@ and pairs each phase's begin and end stamps into device durations, in
 order (`Record.phases`, ms; `Record.stamps`, the raw marks).
 
 Where the port records (names as `PERF.md` §3 lists them):
-  * trainer (`training/trainer.py`): `trainer.init` (`KDTrainer.__init__`);
-    per chunk of `fit` the root `fit.chunk` with the children `fit.next`
-    (the wait for the next chunk from the iterator), `fit.log` (the read of
-    a logged chunk's metrics, the host waiting for the device), `fit.eval`,
-    `fit.save`, `fit.profile` (`profile_dir`'s profiler started or stopped);
+  * trainer (`training/trainer.py`): `trainer.init` (`KDTrainer.__init__`)
+    and the counter `teacher.fused_abn` (the frozen teacher's ABNs that take
+    the fused eval kernel K6); per chunk of `fit` the root `fit.chunk` with
+    the children `fit.next` (the wait for the next chunk from the iterator),
+    `fit.log` (the read of a logged chunk's metrics, the host waiting for
+    the device), `fit.eval`, `fit.save`, `fit.profile` (`profile_dir`'s
+    profiler started or stopped);
   * multi-step loop (`training/train_step.py`): `loop.eager` (a chunk run
     eagerly), `loop.capture` (the capture `TrainLoop.capture_ms` times),
     `loop.stage` (a replay's static-input copies and host draws, with the

@@ -56,6 +56,19 @@ student. The PSP's adaptive average pool (`ops/pooling.py`) has a backward
 in a fixed order where its bins overlap: two backward passes on the card
 are bit-identical, within f32 rounding of torch's own, and a train step
 runs with `torch.use_deterministic_algorithms(True)`.
+
+`KDTrainer`'s frozen teacher on the card: every ABN of it takes K6
+(`abn_fused_eval`), the counter `teacher.fused_abn` reads their number and
+the student's and D's ABNs stay unfused; its bf16 eval forward equals an
+unfused teacher of the same state within bf16 rounding (K6 computes
+x·scale + shift where the unfused path computes (x − mean)·scale + bias,
+both in f32, so an output rounds to another bf16 value now and then, and
+the next layers carry that on: the logits and the feature after the PSP
+of the two lie no further apart than two bf16 runs of the net, measured
+by the unfused one's gap to the teacher in f32, and the fused one is as
+close to f32 as the unfused one, within a quarter);
+an eager step launches K6 once per teacher ABN, and a captured chunk
+replays equal to the same chunk run eagerly.
 """
 
 import copy
@@ -88,10 +101,15 @@ from structure_knowledge_distillation_tpu_torch.training.train_state import (
     make_sgd,
     poly_schedule,
 )
+from structure_knowledge_distillation_tpu_torch.training.checkpoint import (
+    load_reference_state_dict,
+)
 from structure_knowledge_distillation_tpu_torch.training.train_step import (
     make_train_loop,
     make_train_step,
 )
+from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
+from structure_knowledge_distillation_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -835,6 +853,99 @@ def test_train_step_runs_with_deterministic_algorithms(exact_cuda, monkeypatch):
     finally:
         torch.use_deterministic_algorithms(False)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+# --- KDTrainer's frozen teacher on the card: every ABN through K6
+TEACHER_ABNS = 25  # teacher_layers (1, 1, 1, 1): stem 3, blocks 12, downsamples 4, PSP 5, DSN 1
+
+
+def _teacher_cfg(tmp_path, **kw):
+    base = dict(classes_num=7, batch_size=2, input_size=(256, 256), imsize_for_adv=33,
+                adv_conv_dim=16, num_steps=40, compute_dtype="float32", device="cuda",
+                teacher_layers=(1, 1, 1, 1), log_path="", snapshot_dir=str(tmp_path / "snap"),
+                S_ckpt_path=str(tmp_path / "ckpt"))
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _teacher_state(classes: int) -> dict:
+    """A full-width (1, 1, 1, 1) teacher's state dict whose ABNs are no
+    identity: running statistics, weights and biases drawn from a seed."""
+    g = torch.Generator().manual_seed(21)
+    teacher = ResPSPNet("bottleneck", (1, 1, 1, 1), classes, generator=g)
+    with torch.no_grad():
+        for m in teacher.modules():
+            if isinstance(m, ABN):
+                m.running_mean.normal_(0.0, 0.2, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.normal_(1.0, 0.2, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    return teacher.state_dict()
+
+
+def test_trainer_teacher_takes_k6_on_the_card(cuda_device, tmp_path):
+    spans.start()
+    try:
+        trainer = KDTrainer(_teacher_cfg(tmp_path), teacher_state=_teacher_state(7))
+    finally:
+        record = spans.stop()
+    abns = [m for m in trainer.teacher.modules() if isinstance(m, ABN)]
+    assert len(abns) == TEACHER_ABNS and all(m.fused for m in abns)
+    assert record.counters["teacher.fused_abn"] == trainer.teacher_fused_abn == TEACHER_ABNS
+    for model in (trainer.student, trainer.discriminator):
+        abns = [m for m in model.modules() if isinstance(m, ABN)]
+        assert abns and not any(m.fused for m in abns)
+
+
+def test_trainer_teacher_forward_matches_the_unfused_teacher(exact_cuda, tmp_path):
+    """bf16 rounding compounds through the net, so "within bf16 rounding" is
+    measured against the teacher in f32 (TF32 off): the fused and the
+    unfused bf16 teachers lie no further apart than two bf16 versions of the
+    same net with independent roundings (√2 times the unfused one's gap to
+    f32), and the fused one is as close to f32 as the unfused one, within a
+    quarter."""
+    state = _teacher_state(7)
+    trainer = KDTrainer(_teacher_cfg(tmp_path, compute_dtype="bfloat16"), teacher_state=state)
+    plain = {}
+    for dtype in (torch.bfloat16, None):
+        plain[dtype] = ResPSPNet("bottleneck", (1, 1, 1, 1), 7, device=exact_cuda, dtype=dtype)
+        load_reference_state_dict(plain[dtype], state)
+        plain[dtype].eval()
+    teacher = trainer.teacher.eval()
+    x = torch.randn(2, 3, 129, 129, generator=torch.Generator().manual_seed(2)).to(exact_cuda)
+    fused_bn.bn_act.launches = 0
+    with torch.no_grad():
+        got = teacher(x)
+        torch.cuda.synchronize()
+        assert fused_bn.bn_act.launches == TEACHER_ABNS
+        want, f32 = plain[torch.bfloat16](x), plain[None](x)
+    torch.cuda.synchronize()
+    assert fused_bn.bn_act.launches == TEACHER_ABNS
+
+    def gap(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).norm() / b.norm()).item()
+
+    for i in (0, 2):  # the logits, the feature after the PSP
+        assert got[i].dtype == want[i].dtype == torch.bfloat16
+        rounding = gap(want[i], f32[i])
+        assert 0 < gap(got[i], want[i]) <= 2 ** 0.5 * rounding, (i, rounding)
+        assert gap(got[i], f32[i]) <= 1.25 * rounding, (i, rounding)
+
+
+def test_trainer_teacher_chunk_replays_equal_eager_steps(exact_cuda, tmp_path):
+    cfg = _teacher_cfg(tmp_path)
+    trainer = KDTrainer(cfg, teacher_state=_teacher_state(7))
+    (images, labels), = _loop_chunks(exact_cuda, 1)
+    fused_bn.bn_act.launches = 0
+    make_train_step(cfg)(trainer.state, images[0], labels[0], torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    assert fused_bn.bn_act.launches == TEACHER_ABNS
+    fused_bn.bn_act.launches = 0
+    _replay_equals_eager(exact_cuda, cfg, trainer.state, 7)
+    # the warm-up chunk, the reference chunk and the captured one (counted
+    # once, as its kernels are recorded)
+    assert fused_bn.bn_act.launches == 3 * LOOP_K * TEACHER_ABNS
 
 
 class _SyncingStudent(ResPSPNet):

@@ -270,7 +270,9 @@ def test_fit_with_profile_dir_records_until_its_window_closes(tmp_path, caplog, 
     assert not spans.recording() and len(logged) == 1
     lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("spans:")]
     assert len(lines) == 1 and "loop.eager" in lines[0]
+    assert "0 teacher ABNs fused" in lines[0]  # a CPU teacher stays unfused
     rec = logged[0]
+    assert rec.counters["teacher.fused_abn"] == 0
     roots = [i for i in rec.named("fit.chunk") if rec.spans[i][3] < 0]
     assert len(roots) == 6  # steps 1-10 in 5 chunks, then the next one's wait
     assert [rec.spans[j][0] for j in rec.children(roots[-1])] == ["fit.next"]

@@ -3,11 +3,12 @@
 Set-up (counted in `setup_s`): the student's seeded weights on the card,
 its running statistics calibrated on a frame of the pool, the pool of
 distinct host frames and labels made from the seed (on the card, then
-copied to the host as the loader would hand them over), the model as
-`cli/eval.py` builds it, and a sweep of `warmup_frames` frames. The window
-is one `evaluate_main` call over a loader that hands out the pool's frames
-in turn until `--seconds` have passed; it ends when the confusion is back on
-the host.
+copied to the host as the loader would hand them over), the model the
+student's network file serves (`networks/<arch>.py`, as `cli/eval.py`
+builds it), and a sweep of `warmup_frames` frames. The window is one
+`evaluate_main` call over a loader that hands out the pool's frames in turn
+until `--seconds` have passed; it ends when the confusion is back on the
+host.
 
 The comparison. After the window, one more sweep through `evaluate_main`
 over every frame of the pool, one frame a call, with `output_dir` set: the
@@ -39,14 +40,13 @@ import torch
 import torch.nn.functional as F
 
 from benchmark import harness, inputs
-from benchmark.reference import counts, nets, precision, weights
+from benchmark.reference import archs, counts, nets, precision, weights
 
 EVAL_STAGES = ()
 
 
 def spec_of(config: dict) -> dict:
-    s, r = config["student"], config["recipe"]
-    return nets.psp_spec(s["block"], s["layers"], r["classes"])
+    return archs.spec_of(config["student"], config["recipe"]["classes"])
 
 
 def _confusion(pred: torch.Tensor, lab: torch.Tensor, classes: int) -> torch.Tensor:
@@ -63,7 +63,7 @@ def reference_sweep(spec, state, frames, labels, classes, prec, dev, served=None
     with torch.no_grad():
         for i, (x, y) in enumerate(zip(frames, labels)):
             xd = torch.from_numpy(x).to(dev).permute(0, 3, 1, 2).float()
-            logits = nets.psp_forward(nets.Ctx(state, prec, False), spec, xd)[0]
+            logits = archs.forward(nets.Ctx(state, prec, False), spec, xd)[0]
             up = F.interpolate(logits, size=y.shape[1:], mode="bilinear", align_corners=True)
             pred = up.argmax(1)
             confs.append(_confusion(pred, torch.from_numpy(y).to(dev).long(), classes))
@@ -93,7 +93,6 @@ def mismatch_share(conf_prog: np.ndarray, conf_ref: np.ndarray) -> float:
 
 def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         t_origin: float = 0.0, control: bool = False) -> dict:
-    from structure_knowledge_distillation_tpu_torch.models import BASIC, ResPSPNet
     from structure_knowledge_distillation_tpu_torch.training.checkpoint import (
         load_reference_state_dict,
     )
@@ -114,7 +113,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
             weights.calibrate(spec, state, img)
         frames.append(img.permute(0, 2, 3, 1).contiguous().cpu().numpy())
         labels.append(inputs.labels(gen, 1, frame, classes, traffic, dev).cpu().numpy())
-    model = ResPSPNet(BASIC, tuple(config["student"]["layers"]), classes, device=dev)
+    model = archs.network(config["student"]["arch"]).served(config["student"], classes, dev)
     load_reference_state_dict(model, state)
     model.eval()
     state = {k: v.cpu() for k, v in state.items()}
@@ -138,13 +137,23 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
     harness.reset_peak(dev)
     evaluate_main(model, loader(n=traffic["warmup_frames"]), classes, **common)
     harness.sync(dev)
+    # spans of the window's frames alone: the sweep captures nothing that
+    # needs marks from set-up
+    recorder = harness.start_spans() if trace and harness.wants_spans(cell) else None
     setup_s = harness.now() - t_origin
     box = {} if trace else None
-    t0 = harness.now()
-    _, _, conf = evaluate_main(model, loader(seconds, 0, None, t0, box), classes, **common)
-    window_s = harness.now() - t0
-    if box and "prof" in box:
-        _stop(box, dev, int(counts_seen.sum()) - traffic["trace_from"])
+    span_record = None
+    try:
+        t0 = harness.now()
+        _, _, conf = evaluate_main(model, loader(seconds, 0, None, t0, box), classes, **common)
+        window_s = harness.now() - t0
+        if box and "prof" in box:
+            _stop(box, dev, int(counts_seen.sum()) - traffic["trace_from"])
+        if recorder is not None:
+            span_record, recorder = recorder.stop(), None
+    finally:
+        if recorder is not None:  # unwinding from an error
+            recorder.stop(read_marks=False)
     peak = harness.peak_bytes(dev)
     frames_scored = int(counts_seen.sum())
     # the check sweep: each pool frame once more, its class map as a PNG
@@ -182,7 +191,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
         numbers["control.class_mismatch_share"] = mismatch_share(
             weigh(low["confusions"]), weigh(ref["confusions"]))
     record = {"frames": frames_scored, "window_s": window_s, "setup_s": setup_s,
-              "peak": peak, "numbers": numbers, "finite": True}
+              "peak": peak, "numbers": numbers, "finite": True, "spans": span_record}
     if trace:
         record.update(counts.eval_frame_counts(spec, frame))
         record["frame"] = frame

@@ -1,9 +1,10 @@
 """The training cells: a closed loop of chunks through `KDTrainer.fit`.
 
 Set-up (counted in `setup_s`): the seeded weights and the input pool on the
-card, the teacher's running statistics calibrated on a batch of the pool,
-the trainer, then its first steps through `fit` itself, fed from the pool:
-a chunk with one valid step and one with two (the start the reference
+card (each network the file its configuration slot names, `reference/
+archs.py`), the teacher's running statistics calibrated on a batch of the
+pool, the trainer, then its first steps through `fit` itself, fed from the
+pool: a chunk with one valid step and one with two (the start the reference
 follows, eager by the loop's rule for part-filled chunks), the loop's eager
 warm-up chunk, the chunk it captures, and one replay. The window feeds full
 chunks of the pool, in turn, to one `fit` call until `--seconds` have
@@ -32,18 +33,15 @@ from typing import Dict
 import torch
 
 from benchmark import checks, harness, inputs
-from benchmark.reference import counts, kd_step, nets, precision, weights
+from benchmark.reference import archs, counts, kd_step, nets, precision, weights
 
 TRAIN_STAGES = ("teacher_forward", "student_loss_and_grad", "d_loss_and_grad")
 
 
 def specs_of(config: dict) -> dict:
-    r = config["recipe"]
-    t, s, d = config["teacher"], config["student"], config["disc"]
-    student = (nets.psp_spec(s["block"], s["layers"], r["classes"]) if s["arch"] == "resnet18"
-               else nets.espnet_spec(r["classes"], s.get("p", 2), s.get("q", 8)))
-    return {"teacher": nets.psp_spec(t["block"], t["layers"], r["classes"]),
-            "student": student,
+    r, d = config["recipe"], config["disc"]
+    return {"teacher": archs.spec_of(config["teacher"], r["classes"]),
+            "student": archs.spec_of(config["student"], r["classes"]),
             "disc": nets.disc_spec(r["classes"], d["imsize_for_adv"], d["adv_conv_dim"])}
 
 
@@ -51,6 +49,9 @@ def train_config(config: dict, traffic: dict, device: str, tmp: str, seed: int):
     from structure_knowledge_distillation_tpu_torch.config import TrainConfig
 
     r, d = config["recipe"], config["disc"]
+    fields = {}
+    for slot in ("teacher", "student"):
+        fields.update(archs.network(config[slot]["arch"]).program_fields(config[slot]))
     return TrainConfig(
         data_set=config.get("data_set", "cityscapes"), classes_num=r["classes"],
         batch_size=traffic["batch"],
@@ -60,9 +61,7 @@ def train_config(config: dict, traffic: dict, device: str, tmp: str, seed: int):
         lambda_gp=r["lambda_gp"], lr_g=r["lr_g"], lr_d=r["lr_d"], momentum=r["momentum"],
         weight_decay=r["weight_decay"], power=r["power"], num_steps=r["num_steps"],
         imsize_for_adv=d["imsize_for_adv"], adv_conv_dim=d["adv_conv_dim"],
-        preprocess_gan_mode=d["preprocess_gan_mode"],
-        student_arch=config["student"]["arch"],
-        teacher_layers=tuple(config["teacher"]["layers"]),
+        preprocess_gan_mode=d["preprocess_gan_mode"], **fields,
         unroll_steps=traffic["unroll"], log_every=traffic["log_every"],
         device=device, seed=seed % (2 ** 31),
         log_path=os.path.join(tmp, "log"), snapshot_dir=os.path.join(tmp, "snapshots"),
@@ -155,6 +154,9 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
     weights.calibrate(specs["teacher"], state0["teacher"], calib)
     del calib
     unroll = traffic["unroll"]
+    # spans from before the trainer is built, so its capture holds the marks
+    recorder = harness.start_spans() if trace and harness.wants_spans(cell) else None
+    span_record = None
     tmp = tempfile.mkdtemp(prefix="bench_train_")
     try:
         cfg = train_config(config, traffic, dev.type, tmp, seed)
@@ -201,6 +203,8 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
         window_s = harness.now() - t0
         if "prof" in prof_box:
             _stop(prof_box, dev, fed[0] - traffic["trace_from"])
+        if recorder is not None:
+            span_record, recorder = recorder.stop(), None
         steps = fed[0] * unroll
         peak = harness.peak_bytes(dev)
         replays = loop.replays - replays0
@@ -215,12 +219,14 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str 
         window_losses = [m for _, m in trainer.history]
         del trainer, loop
     finally:
+        if recorder is not None:  # unwinding from an error
+            recorder.stop(read_marks=False)
         shutil.rmtree(tmp, ignore_errors=True)
     harness.free_cache(dev)
     record = {"steps": steps, "window_s": window_s, "setup_s": t0 - t_origin, "peak": peak,
               "capture_ms": capture_ms, "replays": replays,
               "images": steps * traffic["batch"], "valid_pixels": pool.valid_pixels,
-              "crop": tuple(traffic["crop"]), "trace": None}
+              "crop": tuple(traffic["crop"]), "trace": None, "spans": span_record}
     if "stopped" in prof_box:
         prof, wall, n = prof_box.pop("stopped")
         record["trace"] = harness.Trace.from_profiler(prof, wall, TRAIN_STAGES, steps=n)

@@ -5,8 +5,20 @@ result line.
 A cell is an entry of `BENCHMARK.json`'s `workloads`. Its files are found by
 name: `configs/<config>.json` (the models and the recipe), `traffic/
 <traffic>.json` (the inputs and the loop; its `kind` picks the driver in
-`drivers/`), `limits/<cell>.json` (the limit of each number compared) and,
-for every per-layer metric the cell reports, `metrics/<metric>.py`.
+`drivers/`), `limits/<cell>.json` (the limit of each number compared), for
+each network the configuration names, `networks/<arch>.py`
+(`reference/archs.py`) and, for every per-layer metric the cell reports,
+`metrics/<metric>.py`. A reader that sets `SPANS = True` has the port's
+span record in a traced run, put in the run as `spans` (None where no reader
+asks, or the program records none). The train driver records from before
+the trainer is built, so that the captured graph holds the phase marks; the
+eval driver records the window alone, from after the warm-up sweep (its
+frames include those before the profiled stretch, which `Record.on_trace`
+with the trace's `start_ns` tells apart). The opt-in is the cell's, not the
+reader's: once one reader of a cell asks, every traced run of the cell
+records, and on train the marks replay with each graph and lie inside the
+profiled stretch. So the PR that adds the first such reader to a cell
+measures that cell's other traced readings and its breakdown again.
 """
 
 from __future__ import annotations
@@ -22,10 +34,12 @@ import sys
 import time
 from collections import defaultdict
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent
 REPO = BENCH_DIR.parent
+METRICS_DIR = BENCH_DIR / "metrics"
 FORBIDDEN = ("jax", "jaxlib", "flax", "structure_knowledge_distillation_tpu")
 
 
@@ -89,14 +103,16 @@ def require_cuda(chips: int):
 
 def pin_host(cpus: int) -> List[int]:
     """Hold this process, and every thread it starts from here on, to `cpus`
-    fixed CPUs (the last of those it may use), with as many torch threads:
-    where the host sets a cell's pace, its share of the host is then the same
-    from run to run. Call it before torch starts its threads."""
+    fixed CPUs (the last of those it may use), with one torch thread: where
+    the host sets a cell's pace, its share of the host is then the same from
+    run to run, and its large host copies (pinning a frame) run on the main
+    thread at one pace, where split over several threads each copy waits for
+    its slowest part. Call it before torch starts its threads."""
     import torch
 
     keep = sorted(os.sched_getaffinity(0))[-cpus:]
     os.sched_setaffinity(0, keep)
-    torch.set_num_threads(len(keep))
+    torch.set_num_threads(1)
     return keep
 
 
@@ -125,11 +141,14 @@ class Trace:
     CUDA device (the `record_function` ranges, which the trace repeats on
     the device, left out); `host`: the same of the host's events; `wall_s`:
     the stretch's length on the host clock; `steps` and `frames`: the work
-    the stretch held."""
+    the stretch held; `start_ns`: the profiler's `trace_start_ns`, from
+    which the port's span record maps its spans onto these µs
+    (`Record.on_trace`)."""
 
-    def __init__(self, device, host, wall_s: float, steps: int = 0, frames: int = 0):
+    def __init__(self, device, host, wall_s: float, steps: int = 0, frames: int = 0,
+                 start_ns: int = 0):
         self.device, self.host, self.wall_s = device, host, wall_s
-        self.steps, self.frames = steps, frames
+        self.steps, self.frames, self.start_ns = steps, frames, start_ns
 
     @classmethod
     def from_profiler(cls, prof, wall_s: float, ranges=(), **work) -> "Trace":
@@ -143,7 +162,8 @@ class Trace:
                     dev.append(row)
             else:
                 host.append(row)
-        return cls(dev, host, wall_s, **work)
+        return cls(dev, host, wall_s, start_ns=prof.profiler.kineto_results.trace_start_ns(),
+                   **work)
 
     def busy_us(self) -> float:
         return union_us([(a, b) for _, a, b in self.device])
@@ -201,13 +221,35 @@ def breakdown(trace: Trace, top: int = 10) -> dict:
     return {"device_ops": top_of(ops), "idle_gaps": top_of(gaps)}
 
 
-def load_reader(metric: str) -> Callable:
-    """`read(run)` of the per-layer metric's own file."""
-    path = BENCH_DIR / "metrics" / f"{metric}.py"
+def load_metric(metric: str) -> ModuleType:
+    """The per-layer metric's own file, `METRICS_DIR/<metric>.py`."""
+    path = METRICS_DIR / f"{metric}.py"
     spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(metric: str) -> Callable:
+    """`read(run)` of the per-layer metric's own file."""
+    return load_metric(metric).read
+
+
+def wants_spans(cell: Cell) -> bool:
+    """Whether a per-layer reader of the cell sets `SPANS = True`: it reads
+    the port's span record, `run["spans"]`."""
+    return any(getattr(load_metric(m["name"]), "SPANS", False) for m in cell.per_layer)
+
+
+def start_spans() -> Optional[ModuleType]:
+    """Start the port's span recording (`utils.spans`); the module, whose
+    `stop()` returns the `Record`, or None where the program has none."""
+    try:
+        from structure_knowledge_distillation_tpu_torch.utils import spans
+    except ModuleNotFoundError:
+        return None
+    spans.start()
+    return spans
 
 
 def read_per_layer(cell: Cell, run) -> Dict[str, dict]:

@@ -24,7 +24,7 @@ LOGIT_BYTES = 2  # bf16 logits
 
 def least_s_per_step(heads, crop, valid):
     h_out, w_out = crop
-    groups = [heads] if heads[0] == heads[1] else [[h] for h in heads]
+    groups = [heads] if heads[0] == heads[-1] else [[h] for h in heads]
     total = 0.0
     for group in groups:
         logits = sum(math.prod(s) for s in group) * LOGIT_BYTES

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch._subclasses import FakeTensorMode
 
-from benchmark.reference import kd_step, nets, weights
+from benchmark.reference import archs, kd_step, nets, weights
 from benchmark.reference.flops import flops_of_fn
 from benchmark.reference.precision import Exact
 
@@ -20,7 +20,8 @@ def _fake_batch(n, crop, classes):
 
 def train_step_counts(specs: dict, recipe: kd_step.Recipe, n: int, crop) -> dict:
     """FLOPs of one reference step on a batch of n crops, and the shapes of
-    the student's two heads."""
+    the student's heads (the main one, then the auxiliary one where the
+    student has it)."""
     with FakeTensorMode():
         state = {k: weights.make_state(specs[k], None, "cpu")
                  for k in ("teacher", "student", "disc")}
@@ -30,9 +31,8 @@ def train_step_counts(specs: dict, recipe: kd_step.Recipe, n: int, crop) -> dict
         flops = flops_of_fn(kd_step.ref_steps, specs, state, [batch], recipe, Exact(), draws,
                             0, host=False)
         c = nets.Ctx(dict(state["student"]), Exact(), False)
-        fwd = nets.psp_forward if specs["student"]["kind"] == "psp" else nets.espnet_forward
-        main, aux, _ = fwd(c, specs["student"], batch[0])
-        heads = [tuple(main.shape), tuple(aux.shape)]
+        main, aux, _ = archs.forward(c, specs["student"], batch[0])
+        heads = [tuple(h.shape) for h in (main, aux) if h is not None]
     return {"flops_per_step": flops, "heads": heads}
 
 
@@ -44,8 +44,7 @@ def eval_frame_counts(spec: dict, frame) -> dict:
         holder = {}
 
         def fwd():
-            holder["logits"] = nets.psp_forward(nets.Ctx(dict(state), Exact(), False), spec,
-                                                x)[0]
+            holder["logits"] = archs.forward(nets.Ctx(dict(state), Exact(), False), spec, x)[0]
 
         flops = flops_of_fn(fwd)
         shape = tuple(holder["logits"].shape)

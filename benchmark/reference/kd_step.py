@@ -2,12 +2,13 @@
 
 One step on a batch, in the recipe's order:
   1. the frozen teacher's forward in eval mode;
-  2. the student's forward in train mode; for a student whose stride-8 grid
-     differs from the teacher's (ESPNet-C floors where the PSPNet stem
-     ceils), the teacher's logits and feature resized to the student's grid
-     (align corners);
-  3. G loss = CE(main↑) + 0.4·CE(aux↑) (align-corners upsample to the label
-     size, label 255 ignored, mean over the rest) + λ_pi·Pi + λ_pa·Pa +
+  2. the student's forward in train mode; for a student whose grid differs
+     from the teacher's (ESPNet-C floors where the PSPNet stem ceils), the
+     teacher's logits and feature resized to the student's grid (align
+     corners);
+  3. G loss = CE(main↑) + 0.4·CE(aux↑), the second term only for a student
+     with an auxiliary head (align-corners upsample to the label size, label
+     255 ignored, mean over the rest) + λ_pi·Pi + λ_pa·Pa +
      λ_d·(−mean D(S)), where D runs in train mode; the gradient w.r.t. the
      student's parameters only; SGD: d = g + wd·p, buf = m·buf + d,
      p −= lr·buf, with the poly lr base·((num_steps − step)/num_steps)^0.9
@@ -19,6 +20,8 @@ One step on a batch, in the recipe's order:
 Pi = Σ −softmax(T)·log_softmax(S) / (h·w); Pa = Σ (G_T − G_S)² / (h·w)² / B
 over the Gram matrices of channel-normalised features after a ceil-mode max
 pool of kernel = stride = ⌊side·0.5⌋.
+
+Each network is the file its configuration slot names (`archs.py`).
 
 Uniforms: each step draws, from one CPU `torch.Generator`, the DSN dropout's
 (N, C, 1, 1), the PSP dropout's (N, C, 1, 1), then the GP's α (N, 1, 1, 1),
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference import nets
+from benchmark.reference import archs, nets
 
 __all__ = ["Recipe", "poly_lr", "ref_steps"]
 
@@ -93,10 +96,6 @@ def pi_loss(ls, lt):
     return (-F.softmax(lt.detach(), 1) * F.log_softmax(ls, 1)).sum() / (h * w)
 
 
-def _forward(spec, c, x):
-    return (nets.psp_forward if spec["kind"] == "psp" else nets.espnet_forward)(c, spec, x)
-
-
 def _sgd(params: Dict[str, torch.Tensor], names: List[str], grads, bufs: Dict, lr: float,
          r: Recipe):
     for name, g in zip(names, grads):
@@ -127,17 +126,18 @@ def ref_steps(specs: dict, state: dict, batches, r: Recipe, prec: Callable,
     for i, (images, labels) in enumerate(batches):
         step = first_step + i
         with torch.no_grad():
-            lt, _, ft = _forward(specs["teacher"], nets.Ctx(t, prec, False), images)
+            lt, _, ft = archs.forward(nets.Ctx(t, prec, False), specs["teacher"], images)
         sp = {k: (v.requires_grad_(True) if k in s_names else v)
               for k, v in ((k, v.detach()) for k, v in s.items())}
         cs = nets.Ctx(sp, prec, True, draws)
-        ls, aux, fs = _forward(specs["student"], cs, images)
+        ls, aux, fs = archs.forward(cs, specs["student"], images)
         if lt.shape[2:] != ls.shape[2:]:
             lt = nets.up(lt, tuple(ls.shape[2:]))
             ft = nets.up(ft, tuple(fs.shape[2:]))
         size = tuple(labels.shape[1:])
-        mc = (_ce(nets.up(ls, size), labels, r.ignore)
-              + r.dsn_weight * _ce(nets.up(aux, size), labels, r.ignore))
+        mc = _ce(nets.up(ls, size), labels, r.ignore)
+        if aux is not None:
+            mc = mc + r.dsn_weight * _ce(nets.up(aux, size), labels, r.ignore)
         terms = {"mc_loss": mc}
         g_loss = mc
         if r.pi:

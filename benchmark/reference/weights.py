@@ -23,7 +23,7 @@ from typing import Dict
 
 import torch
 
-from benchmark.reference import nets
+from benchmark.reference import archs, nets
 
 __all__ = ["make_state", "calibrate"]
 
@@ -60,8 +60,12 @@ def _fill_bns(bns, gen, device, out: Dict[str, torch.Tensor]) -> None:
 
 
 def make_state(spec: dict, gen, device) -> Dict[str, torch.Tensor]:
-    """A state dict of a `nets.*_spec` network under its torch names (`gen`
-    None: torch's default generator, as on fake tensors)."""
+    """A state dict of a spec's network under its torch names (`gen` None:
+    torch's default generator, as on fake tensors); the network file's own
+    `make_state` where it has one."""
+    own = getattr(archs.network(spec["arch"]), "make_state", None) if "arch" in spec else None
+    if own is not None:
+        return own(spec, gen, device)
     out: Dict[str, torch.Tensor] = {}
     if spec["kind"] == "disc":
         keys = nets.disc_keys(spec)
@@ -103,8 +107,7 @@ def calibrate(spec: dict, state: Dict[str, torch.Tensor], images: torch.Tensor) 
     every channel)."""
     p = dict(state)
     c = nets.Ctx(p, lambda t: t, True, lambda shape: torch.zeros(shape), momentum=1.0)
-    fwd = nets.psp_forward if spec["kind"] == "psp" else nets.espnet_forward
-    fwd(c, spec, images.float())
+    archs.forward(c, spec, images.float())
     for k in state:
         if k.endswith(("running_mean", "running_var")):
             state[k] = p[k]

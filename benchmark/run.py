@@ -31,6 +31,8 @@ import json  # noqa: E402
 from benchmark import harness  # noqa: E402
 
 EXIT_NO_CARD, EXIT_FORBIDDEN = 2, 3
+# the work counts of a traced run (`reference/counts.py`), printed beside the readings
+COUNTS = ("flops_per_step", "heads", "flops_per_frame", "logits")
 
 
 def _driver(cell: harness.Cell):
@@ -99,6 +101,9 @@ def main(argv=None) -> int:
         print(f"benchmark: forbidden modules loaded: {', '.join(found)}", file=sys.stderr)
         return EXIT_FORBIDDEN
     print("readings " + json.dumps(rec["numbers"], default=str), file=sys.stderr)
+    counted = {k: rec[k] for k in COUNTS if k in rec}
+    if counted:
+        print("counts " + json.dumps(counted), file=sys.stderr)
     out, checks = result(cell, rec, bool(args.trace))
     harness.emit(out, checks)
     return 0

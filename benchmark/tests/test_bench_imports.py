@@ -12,6 +12,7 @@ import textwrap
 import pytest
 
 from benchmark import harness
+from benchmark.reference import archs
 
 BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
@@ -54,15 +55,22 @@ def test_everything_the_benchmark_runs_imports_without_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """Nor does any network file: the port's module a network serves is
+    imported when `served` is called."""
     code = textwrap.dedent("""
         import sys
-        from benchmark.reference import counts, flops, kd_step, nets, precision, weights
+        from benchmark.reference import archs, counts, flops, kd_step, nets, precision, weights
+        files = sorted(archs.NETWORKS_DIR.glob("*.py"))
+        for p in files:
+            archs.network(p.stem)
         names = {m.split(".")[0] for m in sys.modules}
         assert "structure_knowledge_distillation_tpu_torch" not in names
-        print("clean")
+        print("clean", len(files))
     """)
     out = _python(code)
     assert out.returncode == 0, out.stderr[-3000:]
+    n_files = len(list(archs.NETWORKS_DIR.glob("*.py")))
+    assert n_files >= 3 and out.stdout.split()[-2:] == ["clean", str(n_files)]
 
 
 def test_no_card_means_no_result(monkeypatch, capsys):

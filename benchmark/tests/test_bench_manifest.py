@@ -7,6 +7,8 @@ from __future__ import annotations
 import json
 import os
 import re
+import subprocess
+import sys
 
 import pytest
 
@@ -120,3 +122,16 @@ def test_files_the_harness_finds_by_name():
             rel = os.path.relpath(os.path.join(root, n), harness.REPO)
             if "__pycache__" not in rel:
                 assert PATH.match(rel), rel
+
+
+def test_pin_host_holds_cpus_with_one_thread():
+    """`pin_host(cpus)`: the last `cpus` CPUs and one torch thread; in a
+    process of its own, since it holds the whole process."""
+    code = ("import os, torch; from benchmark import harness; "
+            "n = min(2, len(os.sched_getaffinity(0))); keep = harness.pin_host(n); "
+            "print(keep == sorted(os.sched_getaffinity(0)), len(keep) == n, "
+            "torch.get_num_threads())")
+    env = dict(os.environ, PYTHONPATH=str(harness.REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=harness.REPO, env=env, timeout=300)
+    assert out.stdout.split() == ["True", "True", "1"], out.stderr[-2000:]

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from benchmark import inputs
-from benchmark.reference import kd_step, nets, precision, weights
+from benchmark.reference import archs, kd_step, nets, precision, weights
 
 C = 5
 
@@ -49,8 +49,9 @@ def test_pspnet_forwards_match():
     )
 
     x = _images(4, (96, 128))
-    for block, layers in ((BOTTLENECK, (1, 1, 1, 1)), (BASIC, (2, 2, 2, 2))):
-        spec = nets.psp_spec(block, layers, C)
+    for arch, block, layers in (("pspnet", BOTTLENECK, (1, 1, 1, 1)),
+                                ("resnet18", BASIC, (2, 2, 2, 2))):
+        spec = archs.spec_of({"arch": arch, "block": block, "layers": layers}, C)
         st = _state(spec)
         weights.calibrate(spec, st, x)
         model = ResPSPNet(block, layers, C)
@@ -112,8 +113,10 @@ def test_first_step_matches_the_program_step(ho):
     from structure_knowledge_distillation_tpu_torch.training.trainer import KDTrainer
 
     n, size = 4, (256, 256)
-    specs = {"teacher": nets.psp_spec("bottleneck", (1, 1, 1, 1), C),
-             "student": nets.psp_spec("basic", (2, 2, 2, 2), C),
+    specs = {"teacher": archs.spec_of({"arch": "pspnet", "block": "bottleneck",
+                                       "layers": (1, 1, 1, 1)}, C),
+             "student": archs.spec_of({"arch": "resnet18", "block": "basic",
+                                       "layers": (2, 2, 2, 2)}, C),
              "disc": nets.disc_spec(C, 33, 16)}
     g = torch.Generator().manual_seed(4)
     st = {k: weights.make_state(v, g, "cpu") for k, v in specs.items()}
